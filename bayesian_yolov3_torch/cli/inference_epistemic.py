@@ -1,0 +1,63 @@
+#!/usr/bin/env python
+"""Epistemic (MC-dropout) inference -> ECP JSON.
+
+T MC samples per image; output JSON fields include epistemic and aleatoric
+variances, mutual information, and entropies.
+
+    python -m bayesian_yolov3_torch.cli.inference_epistemic \\
+        --set compute_dtype=float32 --set run_id=... --set data.file_pattern=...
+
+``compute_dtype=float32`` is the configuration this slice of the package
+covers; the default ``bfloat16`` needs the fused early backbone and raises
+until that slice lands.
+"""
+
+import logging
+import time
+
+from ..infer import InferenceRunner
+from ..utils import setup_logging
+from ._common import parse_cli
+
+DEFAULTS = {
+    "model": "bayesian",
+    "checkpoint_path": "./checkpoints",  # edit
+    "run_id": "epi_ale",  # edit
+    "step": "last",  # edit: or an explicit step number
+    "full_img_size": [1024, 1920, 3],  # edit if not ECP dataset
+    "cls_cnt": 2,  # edit if not ECP dataset
+    "batch_size": 1,
+    "T": 50,  # edit if out of memory
+    "inference_mode": True,
+    "cpu_thread_cnt": 24,  # edit
+    "crop": False,
+    "aleatoric_loss": False,
+    "priors": "ecp",  # edit
+    "implicit_background_class": True,
+    "data": {
+        "file_pattern": "./data/ecp-day-val-*-of-*",  # edit
+        "num_shards": 4,
+        "shuffle_buffer_size": 1,
+        "cache": False,
+    },
+    "out_path": "./inference/epi_ale",  # edit
+}
+
+
+def main(argv=None):
+    setup_logging()
+    config, device = parse_cli(DEFAULTS, argv)
+    if config.crop or not config.inference_mode:
+        raise SystemExit("epistemic inference needs crop=false and inference_mode=true")
+    logging.info("----- START -----")
+    start = time.time()
+    out_dir = InferenceRunner(config, device=device).run()
+    elapsed = int(time.time() - start)
+    logging.info("----- FINISHED in %02d:%02d:%02d -----",
+                 elapsed // 3600, (elapsed // 60) % 60, elapsed % 60)
+    logging.info("results: %s", out_dir)
+    return out_dir
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,316 @@
+"""Host-side input pipeline: tfrecords -> decoded, batched numpy.
+
+The reader side of the JAX package's ``data/pipeline.py``: record reading,
+PNG decode, batching and a prefetch thread, overlapped with device work.
+(The training loaders belong to the training slice.)
+
+Output batches are dicts of numpy arrays::
+
+    image  (B, H, W, 3) uint8
+    filename (B,) bytes
+
+PNG needs nothing beyond the standard library and numpy: ``decode_png``
+uses the libpng helper of the repository's ``native/`` directory when that
+library is built, and otherwise a ``zlib`` + numpy decoder for 8-bit gray
+or RGB, non-interlaced files with all five row filters; ``encode_png``
+writes such files (filter 0).
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import queue
+import struct
+import threading
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Iterable, Iterator, List, Optional
+
+import numpy as np
+
+from ..config import Config
+from . import proto, tfrecord
+
+
+def parallel_map(fn: Callable, it: Iterable, workers: int, depth_factor: int = 4) -> Iterator:
+    """Order-preserving parallel map over an iterator (thread pool).
+
+    Record parse + PNG decode fan out over ``workers`` threads (zlib and
+    the native decoder release the GIL), with a bounded in-flight window
+    so memory stays flat.  Results come back in input order.
+    """
+    if workers <= 1:
+        for x in it:
+            yield fn(x)
+        return
+    pending: "collections.deque" = collections.deque()
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        try:
+            for x in it:
+                pending.append(ex.submit(fn, x))
+                if len(pending) >= workers * depth_factor:
+                    yield pending.popleft().result()
+            while pending:
+                yield pending.popleft().result()
+        finally:
+            for f in pending:
+                f.cancel()
+
+
+# --------------------------------------------------------------------------
+# PNG
+# --------------------------------------------------------------------------
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+_PNG_NATIVE = None
+
+
+def _png_native():
+    """The libpng decode functions of native/libbyolo_native.so, or False."""
+    global _PNG_NATIVE
+    if _PNG_NATIVE is None:
+        lib = tfrecord._load_native()
+        if lib and hasattr(lib, "byolo_png_decode_rgb") and hasattr(lib, "byolo_png_probe"):
+            lib.byolo_png_probe.restype = ctypes.c_int
+            lib.byolo_png_probe.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t,
+                ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+                ctypes.POINTER(ctypes.c_int32),
+            ]
+            lib.byolo_png_decode_rgb.restype = ctypes.c_int
+            lib.byolo_png_decode_rgb.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_size_t,
+            ]
+            _PNG_NATIVE = lib
+        else:
+            _PNG_NATIVE = False
+    return _PNG_NATIVE
+
+
+def _png_chunks(data: bytes):
+    if data[:8] != _PNG_SIG:
+        raise ValueError("not a PNG file")
+    pos = 8
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        ctype = data[pos + 4:pos + 8]
+        yield ctype, data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+
+
+def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-row PNG filters.  raw: (h, 1 + stride) uint8."""
+    out = np.zeros((h, stride), np.uint8)
+    zero = np.zeros(stride, np.uint8)
+    for y in range(h):
+        ftype = int(raw[y, 0])
+        line = raw[y, 1:]
+        prior = out[y - 1] if y else zero
+        if ftype == 0:
+            out[y] = line
+        elif ftype == 1:  # Sub: running sum per byte lane, mod 256
+            out[y] = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif ftype == 2:  # Up
+            out[y] = line + prior
+        elif ftype in (3, 4):  # Average / Paeth: sequential in the row
+            cur = bytearray(stride)
+            ln, pr = line.tolist(), prior.tolist()
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = pr[i]
+                if ftype == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = pr[i - bpp] if i >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+                cur[i] = (ln[i] + pred) & 0xFF
+            out[y] = np.frombuffer(bytes(cur), np.uint8)
+        else:
+            raise ValueError(f"bad PNG filter type {ftype}")
+    return out
+
+
+def _decode_png_zlib(data: bytes) -> np.ndarray:
+    ihdr = None
+    idat = []
+    for ctype, body in _png_chunks(data):
+        if ctype == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"IDAT":
+            idat.append(body)
+        elif ctype == b"IEND":
+            break
+    if ihdr is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = ihdr
+    if depth != 8 or ctype not in (0, 2) or interlace:
+        raise ValueError(
+            f"unsupported PNG (bit depth {depth}, colour type {ctype}, "
+            f"interlace {interlace}): this decoder takes 8-bit gray or RGB, "
+            "non-interlaced files"
+        )
+    bpp = 3 if ctype == 2 else 1
+    stride = w * bpp
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (stride + 1):
+        raise ValueError("PNG data has the wrong length")
+    pix = _unfilter(raw.reshape(h, stride + 1), h, stride, bpp)
+    if bpp == 1:
+        return np.repeat(pix.reshape(h, w, 1), 3, axis=2)
+    return pix.reshape(h, w, 3)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (h, w, 3) uint8 (the [0,1) scaling happens on device)."""
+    lib = _png_native()
+    if lib:
+        h, w, flags = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
+        if (
+            lib.byolo_png_probe(data, len(data), ctypes.byref(h), ctypes.byref(w),
+                                ctypes.byref(flags)) == 0
+            and flags.value == 0  # no alpha, not 16-bit
+        ):
+            out = np.empty((h.value, w.value, 3), np.uint8)
+            rc = lib.byolo_png_decode_rgb(
+                data, len(data), out.ctypes.data_as(ctypes.c_void_p), out.nbytes)
+            if rc == 0:
+                return out
+    return _decode_png_zlib(data)
+
+
+def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+    """(h, w, 3) or (h, w) uint8 -> PNG bytes (8-bit, filter 0 on every row)."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    if img.ndim == 2:
+        ctype, rows = 0, img
+    elif img.ndim == 3 and img.shape[2] == 3:
+        ctype, rows = 2, img.reshape(img.shape[0], -1)
+    else:
+        raise ValueError(f"encode_png takes (h, w) or (h, w, 3) uint8, got {img.shape}")
+    h, w = img.shape[:2]
+    raw = np.zeros((h, rows.shape[1] + 1), np.uint8)
+    raw[:, 1:] = rows
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+    return (_PNG_SIG
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + chunk(b"IEND", b""))
+
+
+# --------------------------------------------------------------------------
+# records -> batches
+# --------------------------------------------------------------------------
+
+
+def parse_example(record: bytes, config: Config, with_filename: bool = False) -> Dict[str, np.ndarray]:
+    """TF Object Detection API schema parse.
+
+    Applies the implicit-background-class label shift (labels start at 1 in
+    the tfrecords -> shift to 0-based).
+    """
+    feats = proto.decode_example(record)
+    img = decode_png(feats["image/encoded"][0])
+    xmin = np.asarray(feats.get("image/object/bbox/xmin", []), np.float32)
+    ymin = np.asarray(feats.get("image/object/bbox/ymin", []), np.float32)
+    xmax = np.asarray(feats.get("image/object/bbox/xmax", []), np.float32)
+    ymax = np.asarray(feats.get("image/object/bbox/ymax", []), np.float32)
+    bbox = np.stack([ymin, xmin, ymax, xmax], axis=1) if len(xmin) else np.zeros((0, 4), np.float32)
+    label = np.asarray(feats.get("image/object/class/label", []), np.int64).astype(np.int32)
+    if config.implicit_background_class:
+        label = label - 1
+    out = {"image": img, "bbox": bbox, "label": label}
+    if with_filename:
+        names = feats.get("image/filename", [b""])
+        out["filename"] = names[0] if names else b""
+    return out
+
+
+def _batch(items: List[Dict]) -> Dict[str, np.ndarray]:
+    out = {}
+    for k in items[0].keys():
+        if k == "filename":
+            out[k] = np.asarray([it[k] for it in items], dtype=object)
+        else:
+            out[k] = np.stack([it[k] for it in items])
+    return out
+
+
+class _Prefetcher:
+    """Background-thread prefetch."""
+
+    def __init__(self, gen_fn, depth: int = 2):
+        self.q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+
+        def run():
+            try:
+                for item in gen_fn():
+                    if self._stop.is_set():
+                        return
+                    self.q.put(item)
+            except BaseException as e:  # surface worker errors to the consumer
+                self.q.put(e)
+            self.q.put(None)
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def __iter__(self):
+        while True:
+            item = self.q.get()
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+
+    def close(self):
+        self._stop.set()
+        while not self.q.empty():
+            self.q.get_nowait()
+
+
+class TestLoader:
+    """One-epoch, ordered (img, filename) batches."""
+
+    __test__ = False  # not a pytest class
+
+    def __init__(self, config: Config, batch_size: Optional[int] = None,
+                 pack_planes: bool = False):
+        if pack_planes:
+            raise NotImplementedError(
+                "host-packed input planes feed the fused early backbone, "
+                "which is the next slice of this package"
+            )
+        self.config = config
+        self.batch_size = batch_size or config.batch_size
+
+    def batches(self) -> Iterator[Dict[str, np.ndarray]]:
+        def parse(rec):
+            parsed = parse_example(rec, self.config, with_filename=True)
+            parsed.pop("bbox"), parsed.pop("label")
+            return parsed
+
+        def gen():
+            buf = []
+            parsed_it = parallel_map(
+                parse,
+                tfrecord.read_shards(self.config.data.file_pattern),
+                self.config.cpu_thread_cnt,
+            )
+            for parsed in parsed_it:
+                buf.append(parsed)
+                if len(buf) == self.batch_size:
+                    yield _batch(buf)
+                    buf = []
+            if buf:
+                yield _batch(buf)  # final partial batch
+
+        return iter(_Prefetcher(gen))

@@ -1,0 +1,250 @@
+"""Inference runner: tfrecords -> detections -> ECP JSON files.
+
+This slice covers the single-device EPISTEMIC path (bayesian variant,
+``inference_mode``): T-sample channels-first MC forward
+(``models.yolov3.mc_forward_cf``), the epistemic decode kernel
+(``ops.cuda_epistemic``), certified NMS over the flattened 21+C rows
+(``ops.nms`` with the greedy-NMS kernel), and the exact (pre_top_k=0)
+retry of batches whose certificate fails — on the decoded rows already
+computed; the JAX runner re-runs its whole jitted program, with the same
+result.  JSON writing overlaps the next batch on a worker thread.
+
+The runner computes on ``device`` ("cuda" unless the caller passes another
+one) and raises when that device is not there; it never moves to the CPU
+by itself.  On CUDA tensors the pipeline goes through the two hand-written
+kernels; on CPU tensors (the tests) through their plain versions.
+
+Batched standard/aleatoric inference, the ``mesh_shape`` axes, ``quantize``
+and ``packed_host_input`` belong to later slices and raise here.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..convert import tree_to
+from ..core.blueprint import Variant
+from ..core.priors import priors_as_array
+from ..data import pipeline
+from ..models.yolov3 import YoloV3, _key_table, mc_forward_cf
+from ..ops import nms
+from ..ops.cuda_epistemic import fused_epistemic_decode_cf_batched
+from ..train.checkpoints import CheckpointStore
+from ..train.loop import merge_params, partition_params
+from .ecp import bbox_to_ecp_format
+
+log = logging.getLogger("byolo.infer")
+
+
+class InferenceRunner:
+    def __init__(self, config: Config, seed: int = 0, device="cuda"):
+        if config.crop:
+            raise ValueError("inference runs on full images")
+        self.config = config
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "InferenceRunner computes on a CUDA device and none is "
+                "available; pass device='cpu' to run on the CPU knowingly"
+            )
+        self.model = YoloV3.from_config(config)
+        self.spec = self.model.spec
+        self.epistemic = self.spec.variant == Variant.BAYESIAN and config.inference_mode
+        if not self.epistemic:
+            raise NotImplementedError(
+                "batched standard/aleatoric inference (the per-sample decode "
+                "kernel) is a later slice of this package; this one runs "
+                "model='bayesian' with inference_mode=True"
+            )
+        if config.mesh_shape:
+            raise NotImplementedError("mesh_shape belongs to the multi-device slice")
+        if config.quantize is not None:
+            raise NotImplementedError("quantize belongs to the int8 slice")
+        if config.packed_host_input:
+            raise NotImplementedError(
+                "packed_host_input feeds the fused early backbone (next slice)")
+        # the MC-dropout keys of every batch come from this CPU generator
+        self.rng = torch.Generator(device="cpu")
+        self.rng.manual_seed(seed)
+        self.retried = 0  # batches the last run() re-ran with exact NMS
+        self._priors = {
+            stride: torch.from_numpy(p).to(self.device)
+            for stride, p in priors_as_array(self.model.priors).items()
+        }
+
+    # -- checkpoint handling -------------------------------------------
+
+    def load_state(self):
+        """Restore params/stats from a checkpoint ('last' or a step) onto
+        the runner's device."""
+        store = CheckpointStore(
+            self.config.checkpoint_path, self.config.run_id,
+            max_to_keep=self.config.ckp_max_to_keep,
+        )
+        params, stats = self.model.init(self.rng, device="meta")  # shapes only
+        trainable, frozen = partition_params(params, self.config.freeze_darknet53)
+        like = {"params": trainable, "frozen": frozen, "stats": stats}
+        restored, step = store.restore_partial(like, step=self.config.step)
+        params = merge_params(restored["params"], restored["frozen"])
+        return tree_to(params, self.device), tree_to(restored["stats"], self.device), step
+
+    # -- device program -------------------------------------------------
+
+    def device_batch_size(self) -> int:
+        """Largest image batch one pipeline call takes: the image batch
+        folds onto the anchor axis of the epistemic decode."""
+        return self.config.batch_size
+
+    def draw_keys(self) -> np.ndarray:
+        """(T, 15) uint32 dropout keys for one batch: the constant table of
+        ``fixed_mc_masks``, else fresh keys from the runner's generator."""
+        return _key_table(self.rng, self.config.fixed_mc_masks, self.config.T)
+
+    @torch.no_grad()
+    def _decoded_rows(self, params, stats, images, keys):
+        """uint8 NHWC batch (tensor on the runner's device) + (T, 15) key
+        table -> the decoded epistemic rows of every anchor,
+        (nb, N_total, 21+C): MC forward, then one decode launch per scale."""
+        imgs = images.float() / 255.0
+        nb = imgs.shape[0]
+        outs = mc_forward_cf(
+            params, stats, imgs, spec=self.spec, T=self.config.T, rng=keys,
+            compute_dtype=self.model._dtype,
+        )
+        return torch.cat(
+            [
+                fused_epistemic_decode_cf_batched(
+                    raw_cf, self._priors[stride], n_imgs=nb, h=hw[0], w=hw[1],
+                    cls_cnt=self.spec.cls_cnt, layer_id=i,
+                )
+                for i, ((raw_cf, hw), stride) in enumerate(zip(outs, (32, 16, 8)))
+            ],
+            dim=1,
+        )
+
+    def _select(self, flat, pre_top_k):
+        """Decoded rows -> (rows, valid, cert) padded NMS selections.
+        ``cert`` is the per-image exactness certificate of the pre-top-k
+        restriction (ops.nms); ``pre_top_k=0`` is exact by construction."""
+        cfg = self.config
+        rows, valid, _, cert = nms.nms_select_batch(
+            flat, self.spec.obj_idx(epistemic=True), cfg.nms_max_boxes,
+            cfg.nms_iou_thresh, pre_top_k=pre_top_k, with_certificate=True,
+        )
+        return rows, valid, cert
+
+    def _select_certified(self, flat):
+        """NMS on the top ``nms_pre_top_k`` candidates; where any image's
+        certificate fails, exact NMS over all anchors of the SAME decoded
+        rows (the forward is not run again: the rows do not depend on
+        ``pre_top_k``).  Returns (rows, valid, retried)."""
+        rows, valid, cert = self._select(flat, self.config.nms_pre_top_k)
+        if bool(cert.all()):
+            return rows, valid, False
+        rows, valid, _ = self._select(flat, 0)
+        return rows, valid, True
+
+    def _device_pipeline(self, params, stats, images, keys, *, pre_top_k):
+        """The whole device program: uint8 batch -> (rows, valid, cert)."""
+        return self._select(self._decoded_rows(params, stats, images, keys), pre_top_k)
+
+    def exact_pipeline(self, params, stats, images, keys):
+        """Exact-NMS (pre_top_k=0) instance of the device program.  Trained
+        score surfaces certify essentially always; diffuse ones (random
+        weights) do not and need this one."""
+        return self._device_pipeline(params, stats, images, keys, pre_top_k=0)
+
+    def predict(self, params, stats, images, keys=None):
+        """uint8 NHWC image batch (numpy) -> (rows, valid) numpy detections,
+        with the exact-NMS certificate retry applied.  ``keys``: a (T, 15)
+        key table; None draws one (see ``draw_keys``)."""
+        if keys is None:
+            keys = self.draw_keys()
+        images_d = torch.as_tensor(np.asarray(images)).to(self.device)
+        rows, valid, _ = self._select_certified(
+            self._decoded_rows(params, stats, images_d, keys))
+        return rows.cpu().numpy(), valid.cpu().numpy()
+
+    # -- host loop -------------------------------------------------------
+
+    def run(self, out_path: Optional[str] = None) -> str:
+        cfg = self.config
+        params, stats, step = self.load_state()
+        out_dir = f"{out_path or cfg.out_path}_{step}"
+        os.makedirs(out_dir)  # refuses to overwrite an earlier run's output
+
+        batch_size = self.device_batch_size()
+        loader = pipeline.TestLoader(cfg, batch_size=batch_size)
+        n = 0
+        self.retried = 0
+        start = time.time()
+        inflight = None  # (decoded rows on the device, bsz, names)
+        written: Optional[Future] = None  # the writer thread's previous batch
+
+        def drain(entry):
+            nonlocal written
+            flat, bsz, names = entry
+            rows_d, valid_d, retried = self._select_certified(flat)
+            self.retried += retried
+            rows = rows_d[:bsz].cpu().numpy()
+            valid = valid_d[:bsz].cpu().numpy()
+            if written is not None:
+                written.result()  # a failed write raises here, not silently
+            written = writer.submit(self._write_batch, rows, valid, names, out_dir)
+
+        with ThreadPoolExecutor(max_workers=1) as writer:
+            for batch in loader.batches():
+                images = batch["image"]
+                bsz = images.shape[0]
+                if bsz < batch_size:  # pad the final partial batch
+                    pad = np.repeat(images[-1:], batch_size - bsz, axis=0)
+                    images = np.concatenate([images, pad], axis=0)
+                # launch this batch's forward + decode BEFORE fetching the
+                # previous one's results: launches are asynchronous, the
+                # certificate check and the fetch in drain() synchronise
+                flat = self._decoded_rows(
+                    params, stats, torch.from_numpy(images).to(self.device),
+                    self.draw_keys())
+                names = [f.decode() if isinstance(f, bytes) else f
+                         for f in batch["filename"]]
+                if inflight is not None:
+                    drain(inflight)
+                inflight = (flat, bsz, names)
+                n += bsz
+                if n % 15 == 0:
+                    log.info("Processed %d images.", n)
+            if inflight is not None:
+                drain(inflight)
+            if written is not None:
+                written.result()
+        if self.retried:
+            log.info("%d batches re-run with exact NMS (certificate).", self.retried)
+        elapsed = time.time() - start
+        log.info("Processed %d images in %.1fs (%.2f img/s).", n, elapsed,
+                 n / max(elapsed, 1e-9))
+        return out_dir
+
+    def _write_batch(self, rows, valid, names, out_dir):
+        for b in range(rows.shape[0]):
+            dets = [
+                bbox_to_ecp_format(
+                    rows[b, i],
+                    self.config.full_img_size,
+                    self.spec,
+                    epistemic=self.epistemic,
+                    implicit_background_class=self.config.implicit_background_class,
+                )
+                for i in np.flatnonzero(valid[b])
+            ]
+            base = os.path.splitext(os.path.basename(names[b]))[0]
+            with open(os.path.join(out_dir, f"{base}.json"), "w") as f:
+                json.dump({"children": dets}, f)

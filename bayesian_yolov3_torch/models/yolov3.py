@@ -1,0 +1,323 @@
+"""The three YOLOv3 variants: standard, aleatoric, bayesian (MC-dropout).
+
+Three detection heads at strides 32/16/8, each six convs + a 1x1 linear
+detection conv; heads 2/3 branch from the 5th conv of the previous head,
+1x1-reduce, 2x nearest-upsample, and concat the backbone skip at stride
+16/8.  Same flat parameter names as the JAX package (``backbone``,
+``head{i}_conv{j}``, ``trans{i}``, ``det{i}``).
+
+MC-dropout inference runs the deterministic backbone once; the T samples
+of the dropout-bearing head section are stacked on the batch axis
+(sample-major: row ``t*NB + n``), where the JAX package ``vmap``s over T.
+Each of the 15 dropout sites takes one uint32 hash key per sample, so a
+key table is (T, 15).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.blueprint import ModelBlueprint, Variant, VariantSpec
+from ..core.priors import PriorSet
+from ..ops.common import (
+    conv_block,
+    detection_conv,
+    detection_conv_cf,
+    init_conv_block,
+    init_detection_conv,
+    upsample2x,
+)
+from . import darknet
+
+DROP_PROB = 0.1  # hard-coded in the reference
+N_DROP_SITES = 15  # convs 0..4 of each of the 3 heads
+
+# per-head conv channel plans: six (kernel, cout) convs; the 5th conv (index
+# 4) is the branch point feeding the next scale.
+_HEAD_PLANS = {
+    1: ((1, 512), (3, 1024), (1, 512), (3, 1024), (1, 512), (3, 1024)),
+    2: ((1, 256), (3, 512), (1, 256), (3, 512), (1, 256), (3, 512)),
+    3: ((1, 128), (3, 256), (1, 128), (3, 256), (1, 128), (3, 256)),
+}
+_TRANS_PLANS = {1: (1, 256), 2: (1, 128)}  # 1x1 reduce before upsample
+_BRANCH_IDX = 4  # dropout on convs 0..4, none on conv 5
+
+
+def init_yolov3(gen: torch.Generator, spec: VariantSpec, device="cpu") -> Tuple[Dict, Dict]:
+    """Initialize the full parameter/stat dicts (flat name -> block)."""
+    bparams, bstats = darknet.init_darknet53(gen, device)
+    params: Dict = {"backbone": bparams}
+    stats: Dict = {"backbone": bstats}
+
+    head_cout = spec.head_channels_per_prior * 3  # 3 priors per scale
+    cins = {1: 1024, 2: 256 + 512, 3: 128 + 256}  # concat of upsample + skip
+    for head in (1, 2, 3):
+        cin = cins[head]
+        for j, (k, cout) in enumerate(_HEAD_PLANS[head]):
+            p, s = init_conv_block(gen, k, cin, cout, device)
+            params[f"head{head}_conv{j}"] = p
+            stats[f"head{head}_conv{j}"] = s
+            cin = cout
+        params[f"det{head}"] = init_detection_conv(gen, cin, head_cout, device)
+        if head in _TRANS_PLANS:
+            k, cout = _TRANS_PLANS[head]
+            branch_c = _HEAD_PLANS[head][_BRANCH_IDX][1]
+            p, s = init_conv_block(gen, k, branch_c, cout, device)
+            params[f"trans{head}"] = p
+            stats[f"trans{head}"] = s
+    return params, stats
+
+
+def draw_key_table(gen: torch.Generator, T: int) -> np.ndarray:
+    """(T, 15) uint32 dropout keys from a CPU ``torch.Generator`` — the
+    fresh-masks mode.  (The JAX package's own key stream is not reproduced;
+    parity between the packages is held under ``fixed_masks``.)"""
+    keys = torch.randint(0, 2**32, (T, N_DROP_SITES), generator=gen, dtype=torch.int64)
+    return keys.numpy().astype(np.uint32)
+
+
+def _fixed_key_table(seed, T: int) -> np.ndarray:
+    """Constant (T, 15) uint32 dropout-key table for the fixed-MC-masks
+    mode: one key per (sample, site), from numpy Philox — the identical
+    table in both packages for the same seed and T."""
+    return (
+        np.random.Generator(np.random.Philox(int(seed)))
+        .integers(0, 2**32, size=(T, N_DROP_SITES), dtype=np.uint32)
+    )
+
+
+def _key_table(rng, fixed_masks, T: int) -> np.ndarray:
+    if fixed_masks is not None:
+        return _fixed_key_table(fixed_masks, T)
+    if isinstance(rng, torch.Generator):
+        return draw_key_table(rng, T)
+    if rng is None:
+        raise ValueError("MC dropout requires a torch.Generator or a key table")
+    table = np.asarray(rng)
+    if table.shape != (T, N_DROP_SITES):
+        raise ValueError(f"key table has shape {table.shape}, want {(T, N_DROP_SITES)}")
+    return table
+
+
+def _heads(
+    params: Dict,
+    stats: Dict,
+    dn_out: torch.Tensor,
+    skip16: torch.Tensor,
+    skip8: torch.Tensor,
+    *,
+    site_keys: Optional[np.ndarray] = None,
+    compute_dtype=torch.float32,
+    return_features: bool = False,
+):
+    """Everything after the backbone: 3 det heads + scale transitions.
+
+    ``site_keys`` (T, 15) uint32 or None: with a table, dropout (p=0.1)
+    runs on head convs 0..4 of each head (the transition convs and the
+    final pre-detection conv are dropout-free) and the T samples are
+    stacked sample-major on the batch axis of the returned tensors
+    (T*NB, h, w, ch); None runs one dropout-free pass.
+
+    ``return_features=True`` returns the pre-detection-conv activations
+    instead of detection outputs.
+    """
+    T = 1 if site_keys is None else site_keys.shape[0]
+    site = 0
+
+    def stacked(t: torch.Tensor) -> torch.Tensor:
+        # one copy of a backbone activation per MC sample, sample-major
+        return t if T == 1 else t.unsqueeze(0).expand(T, *t.shape).reshape(-1, *t.shape[1:])
+
+    def run_block(name, x, drop):
+        nonlocal site
+        keys = None
+        if drop and site_keys is not None:
+            keys = [int(k) for k in site_keys[:, site]]
+            site += 1
+        return conv_block(
+            params[name], stats[name], x,
+            drop_rate=DROP_PROB if keys is not None else None,
+            drop_keys=keys, compute_dtype=compute_dtype,
+        )
+
+    raws = []
+    x = stacked(dn_out)
+    for head, skip in ((1, None), (2, skip16), (3, skip8)):
+        if skip is not None:
+            x = run_block(f"trans{head - 1}", x, drop=False)
+            x = upsample2x(x)
+            x = torch.cat([x, stacked(skip).to(x.dtype)], dim=-1)  # [upsampled, skip]
+        branch = None
+        for j in range(6):
+            x = run_block(f"head{head}_conv{j}", x, drop=j <= _BRANCH_IDX)
+            if j == _BRANCH_IDX:
+                branch = x
+        if return_features:
+            raws.append(x)
+        else:
+            raws.append(detection_conv(params[f"det{head}"], x, compute_dtype=compute_dtype))
+        x = branch
+    return tuple(raws)
+
+
+def forward(
+    params: Dict,
+    stats: Dict,
+    imgs: torch.Tensor,
+    *,
+    spec: VariantSpec,
+    rng=None,
+    standard_test_dropout: bool = False,
+    compute_dtype=torch.float32,
+    fused_early=None,
+):
+    """Single inference forward pass.  Returns (raw1, raw2, raw3): raw_i is
+    the f32 detection-conv output at scale i, (N, H/stride, W/stride,
+    3 * head_channels_per_prior).
+
+    The bayesian variant draws one set of dropout masks from ``rng`` (a
+    CPU ``torch.Generator`` or a (1, 15) key table) unless
+    ``standard_test_dropout`` switches dropout off.
+    """
+    out32, skip16, skip8, _ = darknet.darknet53(
+        params["backbone"], stats["backbone"], imgs,
+        compute_dtype=compute_dtype, fused_early=fused_early,
+    )
+    keys = None
+    if spec.mc_dropout and not standard_test_dropout:
+        keys = _key_table(rng, None, 1)
+    return _heads(params, stats, out32, skip16, skip8,
+                  site_keys=keys, compute_dtype=compute_dtype)
+
+
+def mc_forward(
+    params: Dict,
+    stats: Dict,
+    img: torch.Tensor,
+    *,
+    spec: VariantSpec,
+    T: int,
+    rng=None,
+    compute_dtype=torch.float32,
+    fused_early=None,
+    fixed_masks=None,
+):
+    """T-sample MC-dropout forward for epistemic inference (batch size 1).
+
+    The backbone runs once; the head section runs on T stacked samples.
+    Returns three raw tensors of shape (T, h, w, ch).  ``rng``: a CPU
+    ``torch.Generator`` or a (T, 15) uint32 key table; ``fixed_masks``
+    (int seed) takes the constant table of ``_fixed_key_table`` instead,
+    so both packages draw bit-identical masks.
+    """
+    if spec.variant != Variant.BAYESIAN:
+        raise ValueError("mc_forward needs the bayesian variant")
+    if img.shape[0] != 1:
+        raise ValueError("epistemic mc_forward requires batch_size == 1")
+    out32, skip16, skip8, _ = darknet.darknet53(
+        params["backbone"], stats["backbone"], img,
+        compute_dtype=compute_dtype, fused_early=fused_early,
+    )
+    return _heads(params, stats, out32, skip16, skip8,
+                  site_keys=_key_table(rng, fixed_masks, T),
+                  compute_dtype=compute_dtype)
+
+
+def mc_forward_cf(
+    params: Dict,
+    stats: Dict,
+    img: torch.Tensor,
+    *,
+    spec: VariantSpec,
+    T: int,
+    rng=None,
+    compute_dtype=torch.float32,
+    fused_early=None,
+    packed_hw=None,
+    fixed_masks=None,
+):
+    """T-sample MC forward emitting CHANNELS-FIRST raw heads.
+
+    Like ``mc_forward`` but the 1x1 detection convs are applied as one
+    channels-first matrix product over the stacked samples
+    (ops.common.detection_conv_cf), yielding (ch, T, NB*h*w) f32 per scale
+    — the input layout of the epistemic decode kernel, with no relayout in
+    between.  An image batch NB >= 1 folds onto the anchor axis; dropout
+    masks are drawn per (sample, image, position).
+
+    Returns [(raw_cf (ch, T, NB*h*w), (h, w)), ...].
+    """
+    if spec.variant != Variant.BAYESIAN:
+        raise ValueError("mc_forward_cf needs the bayesian variant")
+    out32, skip16, skip8, _ = darknet.darknet53(
+        params["backbone"], stats["backbone"], img,
+        compute_dtype=compute_dtype, fused_early=fused_early, packed_hw=packed_hw,
+    )
+    feats = _heads(params, stats, out32, skip16, skip8,
+                   site_keys=_key_table(rng, fixed_masks, T),
+                   compute_dtype=compute_dtype, return_features=True)
+    nb = img.shape[0]
+    out = []
+    for head, f in enumerate(feats, start=1):
+        h, w, c = f.shape[1:]
+        raw_cf = detection_conv_cf(params[f"det{head}"], f.reshape(T, nb, h, w, c),
+                                   compute_dtype=compute_dtype)
+        out.append((raw_cf, (h, w)))
+    return out
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass
+class YoloV3:
+    """Convenience holder: spec + priors + blueprint, with ``init`` /
+    ``forward`` / ``mc_forward`` bound to them."""
+
+    spec: VariantSpec
+    priors: PriorSet
+    img_size: Tuple[int, int, int]
+    freeze_darknet53: bool = True
+    compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        self.blueprint = ModelBlueprint.build(self.img_size, self.priors, self.spec.cls_cnt)
+        self.cls_cnt = self.spec.cls_cnt
+        self.obj_idx = self.spec.obj_idx(epistemic=False)
+        self.cls_start_idx = self.spec.cls_start_idx(epistemic=False)
+
+    @classmethod
+    def from_config(cls, config) -> "YoloV3":
+        return cls(
+            spec=config.variant_spec,
+            priors=config.resolved_priors(),
+            img_size=config.img_size,
+            freeze_darknet53=config.freeze_darknet53,
+            compute_dtype=config.compute_dtype,
+        )
+
+    @property
+    def _dtype(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
+
+    def init(self, gen: torch.Generator, device="cpu"):
+        return init_yolov3(gen, self.spec, device)
+
+    def forward(self, params, stats, imgs, *, rng=None, standard_test_dropout=False):
+        return forward(params, stats, imgs, spec=self.spec, rng=rng,
+                       standard_test_dropout=standard_test_dropout,
+                       compute_dtype=self._dtype)
+
+    def mc_forward(self, params, stats, img, *, T, rng=None, fixed_masks=None):
+        return mc_forward(params, stats, img, spec=self.spec, T=T, rng=rng,
+                          compute_dtype=self._dtype, fixed_masks=fixed_masks)
+
+    def load_darknet53_weights(self, weightfile, params, stats):
+        bp, bs = darknet.load_darknet53_weights(
+            weightfile, params["backbone"], stats["backbone"]
+        )
+        return {**params, "backbone": bp}, {**stats, "backbone": bs}

@@ -1,0 +1,525 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port starts and is right on an
+NVIDIA Hopper GPU.  Run from the repository root, no arguments, one card:
+
+    python3 chip_smoke.py
+
+It imports only ``bayesian_yolov3_torch``, torch, numpy and the standard
+library; needs a CUDA device (exits non-zero without one) and ``nvcc``
+(every kernel is built from ``bayesian_yolov3_torch/csrc`` in this run).
+
+Phases, each printing one JSON line:
+
+device      card name and power limit (nvidia-smi), torch / CUDA versions
+build       seconds to build the CUDA kernels
+kernels     each kernel against its plain PyTorch version on the card at the
+            main path's shapes; times by CUDA events
+small_ref   the whole pipeline at 64x96 on the card (kernels, cuDNN) against
+            the same pipeline on the CPU (plain versions)
+main_path   epistemic inference at full width — bayesian, 1024x1920, T=30,
+            float32 — through InferenceRunner.run(): tfrecord -> checkpoint ->
+            ECP JSON; kernel launch counters read around it
+timing      img/s of the main path after a warm-up, and a stage breakdown
+
+Then the card line, one ``{"kernels": [...]}`` line and, last,
+``{"ok": true, "device": {...}}``.  Any failed check raises: the script
+then exits non-zero and prints no result line.
+"""
+
+import glob
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from bayesian_yolov3_torch.config import Config, DataConfig
+from bayesian_yolov3_torch.convert import tree_to
+from bayesian_yolov3_torch.core.priors import priors_as_array
+from bayesian_yolov3_torch.data import pipeline, proto, tfrecord
+from bayesian_yolov3_torch.infer.runner import InferenceRunner
+from bayesian_yolov3_torch.models import darknet, yolov3
+from bayesian_yolov3_torch.ops import _build, common, cuda_epistemic, cuda_nms, nms
+from bayesian_yolov3_torch.train.checkpoints import CheckpointStore
+from bayesian_yolov3_torch.train.loop import partition_params
+
+# published peaks of one H100 SXM (NVIDIA data sheet): the yardstick of bound_ms
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+
+IMG = (1024, 1920, 3)
+T = 30
+C = 2
+MAX_OUT = 1000
+PRE_TOP_K = 8192
+N_ANCHORS = 3 * (32 * 60 + 64 * 120 + 128 * 240)  # 120960
+SCALES = ((32, 60), (64, 120), (128, 240))  # strides 32, 16, 8 of 1024x1920
+
+# kernel 1 against its plain version: float32 sums over T in another order.
+# Columns 0..11 (corners, variances) and 13.. (entropies, whose x*log(x)
+# terms cancel) as in the JAX package's own kernel test; column 12, the 4x4
+# covariance determinant, is a difference of products of near-equal numbers.
+EPI_TOL = (((0, 12), 1e-4, 1e-5), ((12, 13), 1e-3, 1e-6), ((13, 21 + C), 1e-4, 2e-4))
+
+
+def emit(phase, **kw):
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def check(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def event_ms(fn, reps, flush=None):
+    """Median time of ``fn`` in ms by CUDA events, one launch per reading;
+    ``flush`` (a tensor larger than L2) is overwritten between readings so
+    each launch finds the cache cold, as after the producing matmul of a
+    155 MB tensor."""
+    times = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+# --------------------------------------------------------------------------
+# kernels
+# --------------------------------------------------------------------------
+
+
+def check_epistemic(dev, flush):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    priors = torch.tensor([[0.3, 0.1], [0.15, 0.05], [0.08, 0.02]], device=dev)
+    shapes = [(1, h, w) for h, w in SCALES] + [(2, 32, 60)]
+    per_shape = []
+    for layer_id, (nb, h, w) in enumerate(shapes):
+        raw = torch.randn((3 * 2 * (5 + C), T, nb * h * w), generator=gen, device=dev)
+        kw = dict(n_imgs=nb, h=h, w=w, cls_cnt=C, layer_id=layer_id % 3)
+        got = cuda_epistemic.fused_epistemic_decode_cf_batched(raw, priors, **kw)
+        torch.cuda.synchronize()
+        want = cuda_epistemic.epistemic_decode_plain(raw, priors, **kw)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape == (nb, 3 * h * w, 21 + C), f"shape {got.shape}")
+        check(bool(torch.isfinite(got).all()), "epistemic_decode: non-finite output")
+        for (lo, hi), rtol, atol in EPI_TOL:
+            ok = torch.allclose(got[..., lo:hi], want[..., lo:hi], rtol=rtol, atol=atol)
+            check(ok, f"epistemic_decode disagrees with its plain version at "
+                      f"{(nb, h, w)}, columns {lo}:{hi} (rtol {rtol}, atol {atol}): max abs "
+                      f"{float((got[..., lo:hi] - want[..., lo:hi]).abs().max())}")
+        ms = event_ms(lambda: cuda_epistemic.fused_epistemic_decode_cf_batched(
+            raw, priors, **kw), 10, flush)
+        plain_ms = event_ms(lambda: cuda_epistemic.epistemic_decode_plain(
+            raw, priors, **kw), 3, flush)
+        nbytes = raw.numel() * 4 + got.numel() * 4 + priors.numel() * 4
+        # per anchor-sample: 4 sums, 10 products+sums, 4+1+C exp, entropies
+        flops = raw.shape[1] * raw.shape[2] * 3 * (60 + 12 * C)
+        per_shape.append({
+            "shape": [int(s) for s in raw.shape], "n_imgs": nb,
+            "max_abs_err": float((got - want).abs().max()),
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
+            else "operations",
+            "bytes": nbytes,
+        })
+        del raw, got, want
+    main = per_shape[:3]  # one image of the main path = these three launches
+    return {
+        "name": "epistemic_decode", "route": "cuda",
+        "source": "bayesian_yolov3_torch/csrc/epistemic_decode.cu",
+        "replaces": "bayesian_yolov3_tpu/ops/pallas_epistemic.py:62",
+        "max_abs_err": max(s["max_abs_err"] for s in per_shape),
+        "ms": sum(s["ms"] for s in main),
+        "plain_ms": sum(s["plain_ms"] for s in main),
+        "bound_ms": sum(s["bound_ms"] for s in main),
+        "bound_by": "bytes", "library_ms": None,
+        "tolerance": [{"columns": list(c), "rtol": r, "atol": a} for c, r, a in EPI_TOL],
+        "note": "ms/plain_ms/bound_ms: the three launches of one 1024x1920 image summed",
+        "shapes": per_shape,
+    }
+
+
+def _random_candidates(gen, n, dev):
+    yx = torch.rand((n, 2), generator=gen, device=dev) * 0.9
+    hw = torch.rand((n, 2), generator=gen, device=dev) * 0.25 + 0.01
+    boxes = torch.cat([yx, yx + hw], dim=1)
+    return boxes, torch.rand((n,), generator=gen, device=dev)
+
+
+def _nms_equal(name, boxes, scores, max_out=MAX_OUT, thresh=0.5):
+    got_i, got_c = cuda_nms.greedy_nms_cuda(boxes, scores, max_out, thresh)
+    torch.cuda.synchronize()
+    want_i, want_c = cuda_nms.greedy_nms_plain(boxes, scores, max_out, thresh)
+    torch.cuda.synchronize()
+    check(torch.equal(got_c, want_c),
+          f"greedy_nms[{name}]: counts {got_c.tolist()} != plain {want_c.tolist()}")
+    bad = int((got_i != want_i).sum())
+    check(bad == 0, f"greedy_nms[{name}]: {bad} indices differ from the plain version")
+    return got_c
+
+
+def check_nms(dev):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    boxes_all, scores_all = _random_candidates(gen, 3 * N_ANCHORS, dev)
+    boxes_all = boxes_all.reshape(3, N_ANCHORS, 4)
+    scores_all = scores_all.reshape(3, N_ANCHORS)
+    # the main path's candidates: the top 8192 by score of a full anchor set
+    order = torch.sort(scores_all, dim=1, descending=True, stable=True).indices[:, :PRE_TOP_K]
+    boxes_top = torch.gather(boxes_all, 1, order[:, :, None].expand(-1, -1, 4)).contiguous()
+    scores_top = torch.gather(scores_all, 1, order).contiguous()
+    cases = {
+        "1x8192": (boxes_top[:1].contiguous(), scores_top[:1].contiguous()),
+        "1x120960": (boxes_all[:1].contiguous(), scores_all[:1].contiguous()),
+        "3x8192": (boxes_top, scores_top),
+    }
+    per_shape = []
+    for name, (b, s) in cases.items():
+        cnt = _nms_equal(name, b, s)
+        ms = event_ms(lambda: cuda_nms.greedy_nms_cuda(b, s, MAX_OUT, 0.5), 5)
+        plain_ms = event_ms(lambda: cuda_nms.greedy_nms_plain(b, s, MAX_OUT, 0.5), 1)
+        nb, k = s.shape
+        picks = int(cnt.max())
+        nbytes = nb * (k * 20 + MAX_OUT * 4 + 4)
+        # a pick costs one IoU (17 flops) + compare against every candidate
+        flops = nb * picks * k * 18
+        per_shape.append({
+            "shape": [nb, k], "picks": cnt.tolist(), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
+            else "operations",
+            "serial_steps": picks,
+        })
+
+    # crafted inputs: every selection rule, exactly
+    crafted = {}
+    b, s = _random_candidates(gen, 4096, dev)
+    crafted["tied_scores"] = (b, torch.round(s * 16) / 16)
+    s2 = s.clone()
+    s2[torch.rand(4096, generator=gen, device=dev) < 0.6] = float("-inf")
+    crafted["neg_inf_padding"] = (b, s2)
+    b3 = b.clone()
+    b3[::3, 2:] = b3[::3, :2]  # zero-area boxes: NaN IoU among themselves
+    crafted["zero_area_nan_iou"] = (b3, torch.round(s * 16) / 16)
+    big = torch.cat([torch.rand((777, 2), generator=gen, device=dev) * 0.2,
+                     torch.rand((777, 2), generator=gen, device=dev) * 0.2 + 0.7], dim=1)
+    crafted["fewer_than_max_out_odd_k"] = (big, torch.rand(777, generator=gen, device=dev))
+    crafted["all_padding"] = (b[:100], torch.full((100,), float("-inf"), device=dev))
+    dup = b.clone()
+    dup[1::2] = dup[::2]
+    crafted["duplicate_boxes_tied"] = (dup, s[::2].repeat_interleave(2))
+    crafted_counts = {}
+    for name, (bb, ss) in crafted.items():
+        cnt = _nms_equal(name, bb[None].contiguous(), ss[None].contiguous())
+        crafted_counts[name] = int(cnt[0])
+    check(crafted_counts["fewer_than_max_out_odd_k"] < MAX_OUT, "crafted case filled up")
+    check(crafted_counts["all_padding"] == 0, "-inf scores were picked")
+
+    main = per_shape[0]
+    return {
+        "name": "greedy_nms", "route": "cuda",
+        "source": "bayesian_yolov3_torch/csrc/greedy_nms.cu",
+        "replaces": "bayesian_yolov3_tpu/ops/pallas_nms.py:156",
+        "also_replaces": "bayesian_yolov3_tpu/ops/pallas_nms.py:40",
+        "max_abs_err": 0.0,  # indices and counts are exactly equal, or the run fails
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "ms_exact_retry_120960": per_shape[1]["ms"],
+        "note": "ms/plain_ms/bound_ms at (1, 8192), the certified path; the real "
+                "limit is the serial chain of `serial_steps` dependent argmax steps",
+        "shapes": per_shape, "crafted_counts": crafted_counts,
+    }
+
+
+# --------------------------------------------------------------------------
+# the model, data and checkpoint of the main path
+# --------------------------------------------------------------------------
+
+
+def random_state(seed, spec, device, wide_boxes=False):
+    """Seeded random weights with O(1) activations: glorot kernels; the head
+    sections' BN gain sqrt(2) makes up for the half of the variance that
+    LeakyReLU removes, so the raw heads are not all ~0.
+
+    ``wide_boxes``: a bias of +6 on every tw/th channel makes each box
+    e^6 times its prior — far larger than the image, whatever its cell — so
+    NMS suppresses nearly all of the top-8192 candidates, fewer than
+    max_out survive, the certificate fails and the runner takes its exact
+    retry."""
+    gen = torch.Generator().manual_seed(seed)
+    params, stats = yolov3.init_yolov3(gen, spec, device)
+    for name, block in params.items():
+        if name.startswith(("head", "trans")):
+            block["gamma"].fill_(math.sqrt(2.0))
+            block["beta"].copy_(torch.randn(block["beta"].shape, generator=gen) * 0.1)
+        if wide_boxes and name.startswith("det"):
+            chpp = spec.head_channels_per_prior
+            for b in range(3):
+                block["b"][b * chpp + 2:b * chpp + 4] = 6.0
+    return params, stats
+
+
+def seeded_frame(rng, hw):
+    """A compressible random frame: coarse noise blown up 16x plus bright boxes."""
+    h, w = hw
+    coarse = rng.integers(0, 160, (h // 16, w // 16, 3), dtype=np.uint8)
+    img = np.repeat(np.repeat(coarse, 16, axis=0), 16, axis=1)
+    for _ in range(6):
+        y, x = int(rng.integers(0, h - h // 4)), int(rng.integers(0, w - w // 8))
+        img[y:y + h // 4, x:x + w // 10] = rng.integers(160, 256, 3, dtype=np.uint8)
+    return img
+
+
+def write_dataset(path, rng, n, hw):
+    os.makedirs(path, exist_ok=True)
+    frames = []
+    with tfrecord.TFRecordWriter(os.path.join(path, "smoke-00000-of-00001.tfrecord")) as wr:
+        for i in range(n):
+            img = seeded_frame(rng, hw)
+            frames.append(img)
+            wr.write(proto.encode_example({
+                "image/encoded": [pipeline.encode_png(img, level=1)],
+                "image/filename": [f"frame_{i:04d}.png".encode()],
+            }))
+    return os.path.join(path, "smoke-*-of-*.tfrecord"), frames
+
+
+def make_config(tmp, name, img_size, t, pattern, **kw):
+    return Config(
+        model="bayesian", inference_mode=True, T=t, batch_size=1,
+        compute_dtype="float32", full_img_size=img_size, cls_cnt=C,
+        checkpoint_path=os.path.join(tmp, "ckpt"), run_id=name,
+        out_path=os.path.join(tmp, "out", name), cpu_thread_cnt=2,
+        data=DataConfig(file_pattern=pattern), **kw,
+    )
+
+
+def save_checkpoint(cfg, params, stats, step):
+    trainable, frozen = partition_params(params, cfg.freeze_darknet53)
+    CheckpointStore(cfg.checkpoint_path, cfg.run_id).save(
+        step, {"params": trainable, "frozen": frozen, "stats": stats})
+
+
+def reset_counters():
+    cuda_epistemic.launch_count = 0
+    cuda_nms.launch_count = 0
+
+
+def small_reference(tmp, dev):
+    """64x96, T=4, two images: the card's pipeline (cuDNN convs, both
+    kernels) against the CPU's (plain versions), same weights, same fixed
+    masks, stage by stage.  NMS picks are compared on ONE set of decoded
+    rows: on rows that differ in the last bits two near-tied scores could
+    swap places, which would say nothing about the kernel."""
+    cfg = make_config(tmp, "small", (64, 96, 3), 4, "", fixed_mc_masks=7,
+                      nms_max_boxes=50, nms_pre_top_k=0)
+    spec = cfg.variant_spec
+    params, stats = random_state(3, spec, "cpu")
+    img = np.random.default_rng(5).integers(0, 256, (2, 64, 96, 3), dtype=np.uint8)
+    x = torch.from_numpy(img).float() / 255.0
+    pri = {s: torch.from_numpy(p) for s, p in priors_as_array(cfg.resolved_priors()).items()}
+    flats = {}
+    with torch.no_grad():
+        for d in ("cpu", dev):
+            outs = yolov3.mc_forward_cf(tree_to(params, d), tree_to(stats, d), x.to(d),
+                                        spec=spec, T=4, fixed_masks=7)
+            flats[str(d)] = torch.cat([
+                cuda_epistemic.fused_epistemic_decode_cf_batched(
+                    raw, pri[s].to(d), n_imgs=2, h=hw[0], w=hw[1], cls_cnt=C, layer_id=i)
+                for i, ((raw, hw), s) in enumerate(zip(outs, (32, 16, 8)))], dim=1)
+    cpu_flat, gpu_flat = flats["cpu"], flats[str(dev)].cpu()
+    check(cpu_flat.shape == gpu_flat.shape == (2, 3 * (6 + 24 + 96), 21 + C), "small_ref shape")
+    # 75 float32 convs sum in another order on the card: ten times the
+    # kernel-vs-plain tolerances
+    for (lo, hi), rtol, atol in EPI_TOL:
+        check(torch.allclose(gpu_flat[..., lo:hi], cpu_flat[..., lo:hi],
+                             rtol=10 * rtol, atol=10 * atol),
+              f"small_ref: decoded columns {lo}:{hi} differ between card and CPU")
+    got = nms.nms_select_batch(cpu_flat.to(dev), 14, 50, 0.5, pre_top_k=0,
+                               with_certificate=True)
+    want = nms.nms_select_batch(cpu_flat, 14, 50, 0.5, pre_top_k=0, with_certificate=True)
+    for g, w in zip(got, want):
+        check(torch.equal(g.cpu(), w), "small_ref: NMS on the card differs from the CPU's")
+    return {"valid": int(want[1].sum()),
+            "max_abs_err": float((gpu_flat - cpu_flat).abs().max())}
+
+
+def main_path(tmp, dev, n_frames=3):
+    rng = np.random.default_rng(11)
+    pattern, frames = write_dataset(os.path.join(tmp, "data"), rng, n_frames, IMG[:2])
+    cfg = make_config(tmp, "smoke", IMG, T, pattern, nms_max_boxes=MAX_OUT,
+                      nms_pre_top_k=PRE_TOP_K)
+    params, stats = random_state(0, cfg.variant_spec, "cpu")
+    save_checkpoint(cfg, params, stats, step=1)
+    del params, stats
+
+    runner = InferenceRunner(cfg, seed=0)  # device: the card, by default
+    reset_counters()
+    t0 = time.time()
+    out_dir = runner.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    check(out_dir.endswith("_1"), f"output dir {out_dir} lacks the step suffix")
+    files = sorted(glob.glob(os.path.join(out_dir, "*.json")))
+    check(len(files) == n_frames, f"{len(files)} JSON files for {n_frames} frames")
+    n_dets = []
+    for f in files:
+        with open(f) as fh:
+            dets = json.load(fh)["children"]
+        check(0 < len(dets) <= MAX_OUT, f"{f}: {len(dets)} detections")
+        for d in dets:
+            nums = [v for v in d.values() if isinstance(v, float)] + d["cls_scores"]
+            check(all(math.isfinite(v) for v in nums), f"{f}: non-finite value")
+            check("x_var_epi" in d and "obj_mutual_info" in d and "total_var_epi" in d,
+                  "epistemic fields missing")
+        n_dets.append(len(dets))
+    check(cuda_epistemic.launch_count > 0 and cuda_nms.launch_count > 0,
+          "the main path launched no kernel")
+    try:
+        runner.run()
+    except FileExistsError:
+        pass
+    else:
+        raise AssertionError("run() overwrote an existing output directory")
+
+    # the same frames through weights whose certificate fails: the exact
+    # (pre_top_k=0) retry inside run()
+    cfg_wide = make_config(tmp, "smoke_wide", IMG, T, pattern, nms_max_boxes=MAX_OUT,
+                           nms_pre_top_k=PRE_TOP_K)
+    save_checkpoint(cfg_wide, *random_state(0, cfg.variant_spec, "cpu", wide_boxes=True), step=2)
+    wide = InferenceRunner(cfg_wide, seed=1)
+    wide_files = sorted(glob.glob(os.path.join(wide.run(), "*.json")))
+    torch.cuda.synchronize()
+    check(len(wide_files) == n_frames, "retry run: JSON files missing")
+    launches = {"epistemic_decode": cuda_epistemic.launch_count,
+                "greedy_nms": cuda_nms.launch_count}
+    retried = runner.retried + wide.retried
+    params, stats, _ = runner.load_state()
+    if not retried:  # both runs certified: drive the exact program once by hand
+        runner.exact_pipeline(params, stats, torch.from_numpy(frames[0][None]).to(dev),
+                              runner.draw_keys())
+        torch.cuda.synchronize()
+
+    # fixed masks: the same image twice gives the same rows
+    cfg_fixed = make_config(tmp, "smoke", IMG, T, pattern, nms_max_boxes=MAX_OUT,
+                            nms_pre_top_k=PRE_TOP_K, fixed_mc_masks=7)
+    fixed = InferenceRunner(cfg_fixed, seed=0)
+    rows_a, valid_a = fixed.predict(params, stats, frames[0][None])
+    rows_b, valid_b = fixed.predict(params, stats, frames[0][None])
+    check(np.array_equal(rows_a, rows_b) and np.array_equal(valid_a, valid_b),
+          "fixed_mc_masks: two predictions of one image differ")
+    check(rows_a.shape == (1, MAX_OUT, 21 + C) and np.isfinite(rows_a).all(),
+          "predict: bad rows")
+    return (runner, params, stats, frames, launches,
+            {"frames": n_frames, "detections": n_dets, "launches": launches,
+             "exact_retries": retried, "exact_pipeline_by_hand": not retried,
+             "wall_s_incl_load": wall, "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+
+
+def timing(runner, params, stats, frames, dev, card):
+    imgs = [torch.from_numpy(f[None]).to(dev) for f in frames]
+    spec = runner.spec
+
+    def one(img, keys):  # what predict() does, without the copies to the host
+        return runner._select_certified(runner._decoded_rows(params, stats, img, keys))[2]
+
+    one(imgs[0], runner.draw_keys())  # warm-up
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    retries = sum(one(img, runner.draw_keys()) for img in imgs)
+    end.record()
+    torch.cuda.synchronize()
+    total_ms = start.elapsed_time(end)
+
+    # stage breakdown of one certified-path pass
+    keys = runner.draw_keys()
+    x = imgs[0].float() / 255.0
+    stage = {}
+    with torch.no_grad():
+        stage["backbone_ms"] = event_ms(lambda: darknet.darknet53(
+            params["backbone"], stats["backbone"], x), 3)
+        stage["forward_cf_ms"] = event_ms(lambda: yolov3.mc_forward_cf(
+            params, stats, x, spec=spec, T=T, rng=keys), 3)
+        outs = yolov3.mc_forward_cf(params, stats, x, spec=spec, T=T, rng=keys)
+
+        def decode_all():
+            return [cuda_epistemic.fused_epistemic_decode_cf_batched(
+                raw, runner._priors[s], n_imgs=1, h=hw[0], w=hw[1], cls_cnt=C, layer_id=i)
+                for i, ((raw, hw), s) in enumerate(zip(outs, (32, 16, 8)))]
+
+        stage["decode_ms"] = event_ms(decode_all, 3)
+        flat = torch.cat(decode_all(), dim=1)
+        for name, k in (("nms_select_top8192_ms", PRE_TOP_K), ("nms_select_exact_ms", 0)):
+            stage[name] = event_ms(lambda: nms.nms_select_batch(
+                flat, 14, MAX_OUT, 0.5, pre_top_k=k, with_certificate=True), 3)
+        # the 15 hash-dropout sites alone, at their main-path shapes
+        site_shapes = [(T, h, w, c) for (h, w), cs in zip(
+            SCALES, ((512, 1024, 512, 1024, 512), (256, 512, 256, 512, 256),
+                     (128, 256, 128, 256, 128))) for c in cs]
+
+        def masks():
+            for shp in site_shapes:
+                common.dropout(torch.ones(shp, device=dev), 0.1, list(range(T)))
+
+        stage["dropout_15_sites_ms"] = event_ms(masks, 2)
+    return {"img_per_s": len(imgs) / (total_ms / 1e3), "ms_per_img": total_ms / len(imgs),
+            "images": len(imgs), "exact_retries": retries, "card": card, **stage}
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    t_start = time.time()
+    dev = torch.device("cuda:0")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    emit("device", card=card, kind=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda)
+
+    t0 = time.time()
+    libs = _build.build_all(verbose=True)
+    for name in libs:
+        _build.load(name)
+    emit("build", seconds=time.time() - t0, kernels=sorted(libs), flags=_build.NVCC_FLAGS)
+
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)  # > 50 MB L2
+    kernels = [check_epistemic(dev, flush), check_nms(dev)]
+    del flush
+    emit("kernels", card=card, kernels=kernels)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        emit("small_ref", **small_reference(tmp, dev))
+        runner, params, stats, frames, launches, summary = main_path(tmp, dev)
+        emit("main_path", card=card, **summary)
+        emit("timing", **timing(runner, params, stats, frames, dev, card))
+
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    emit("done", seconds=time.time() - t_start)
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
