@@ -5,11 +5,13 @@ T MC samples per image; output JSON fields include epistemic and aleatoric
 variances, mutual information, and entropies.
 
     python -m bayesian_yolov3_torch.cli.inference_epistemic \\
-        --set compute_dtype=float32 --set run_id=... --set data.file_pattern=...
+        --set run_id=... --set data.file_pattern=...
 
-``compute_dtype=float32`` is the configuration this slice of the package
-covers; the default ``bfloat16`` needs the fused early backbone and raises
-until that slice lands.
+Runs on the CUDA device unless ``--device cpu`` is given.  The default
+``compute_dtype=bfloat16`` takes the fused early backbone (hand-written conv
+kernels) and the tensor cores; ``--set compute_dtype=float32`` runs every
+convolution in true float32; ``--set packed_host_input=true`` feeds
+host-packed uint8 planes instead of NHWC images.
 """
 
 import logging

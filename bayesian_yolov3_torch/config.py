@@ -85,9 +85,10 @@ class Config:
     nms_pre_top_k: int = 8192
 
     # --- accelerator knobs (no reference counterpart) ----------------------
-    # conv/matmul compute dtype.  "float32" runs every convolution in true
-    # float32 (TF32 off); "bfloat16" is the fused-early-backbone
-    # configuration, which this package does not cover yet.
+    # conv/matmul compute dtype.  "bfloat16": convs 0-25 of the backbone
+    # through the fused conv kernels (ops/cuda_conv.py), every other
+    # convolution and matmul in bf16 with float32 accumulation.  "float32"
+    # runs every convolution in true float32 (TF32 off).
     compute_dtype: str = "bfloat16"
     # hand-written decode / NMS kernels on CUDA tensors (key name shared
     # with the JAX package's config files)

@@ -277,25 +277,61 @@ class _Prefetcher:
             self.q.get_nowait()
 
 
+PACK_PAD = 8  # zero rows above and below the planes of ``pack_planes_host``
+
+
+def packed_row_pitch(width: int) -> int:
+    """Row pitch of the packed planes of a ``width``-wide image: W/2 rounded
+    up to a multiple of 256."""
+    return -(-(width // 2) // 256) * 256
+
+
+def pack_planes_host(img: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 -> (16, (H/2 + 2*PACK_PAD) * pitch) uint8: the image
+    in its 2x2 space-to-depth form, channels first.
+
+    Plane ``(pi*2 + pj)*3 + c`` holds pixel phase (pi, pj) of colour c on the
+    (H/2, W/2) grid, inside ``PACK_PAD`` zero rows above and below and zero
+    columns up to ``packed_row_pitch(W)``; planes 12-15 are zero.  The byte
+    layout is the JAX package's, so one host loader can feed either package;
+    the device casts, scales by 1/255 and reads the 12 image planes through
+    a strided view (``models.darknet._fused_early_stages``).
+    """
+    H, W, C = img.shape
+    if C != 3 or H % 2 or W % 2 or img.dtype != np.uint8:
+        raise ValueError(f"pack_planes_host takes an even-sized uint8 RGB image, got "
+                         f"{img.shape} {img.dtype}")
+    h2, w2 = H // 2, W // 2
+    y = img.reshape(h2, 2, w2, 2, C).transpose(1, 3, 4, 0, 2)
+    y = np.ascontiguousarray(y).reshape(4 * C, h2, w2)
+    out = np.zeros((16, h2 + 2 * PACK_PAD, packed_row_pitch(W)), np.uint8)
+    out[:12, PACK_PAD:PACK_PAD + h2, :w2] = y
+    return out.reshape(16, -1)
+
+
 class TestLoader:
-    """One-epoch, ordered (img, filename) batches."""
+    """One-epoch, ordered (img, filename) batches.
+
+    ``pack_planes=True``: each image is additionally emitted as
+    space-to-depth channels-first uint8 planes under the ``"packed"`` key
+    (``pack_planes_host``), computed on the parser threads, for the runner's
+    packed-input feed.
+    """
 
     __test__ = False  # not a pytest class
 
     def __init__(self, config: Config, batch_size: Optional[int] = None,
                  pack_planes: bool = False):
-        if pack_planes:
-            raise NotImplementedError(
-                "host-packed input planes feed the fused early backbone, "
-                "which is the next slice of this package"
-            )
         self.config = config
         self.batch_size = batch_size or config.batch_size
+        self.pack_planes = pack_planes
 
     def batches(self) -> Iterator[Dict[str, np.ndarray]]:
         def parse(rec):
             parsed = parse_example(rec, self.config, with_filename=True)
             parsed.pop("bbox"), parsed.pop("label")
+            if self.pack_planes:
+                parsed["packed"] = pack_planes_host(parsed["image"])
             return parsed
 
         def gen():

@@ -1,8 +1,10 @@
 """Inference runner: tfrecords -> detections -> ECP JSON files.
 
-This slice covers the single-device EPISTEMIC path (bayesian variant,
-``inference_mode``): T-sample channels-first MC forward
-(``models.yolov3.mc_forward_cf``), the epistemic decode kernel
+This package covers the single-device EPISTEMIC path (bayesian variant,
+``inference_mode``) in ``compute_dtype`` "bfloat16" (the default: convs 0-25
+of the backbone through the fused conv kernels of ``ops.cuda_conv``, the
+rest in bf16 on the tensor cores) and "float32": T-sample channels-first MC
+forward (``models.yolov3.mc_forward_cf``), the epistemic decode kernel
 (``ops.cuda_epistemic``), certified NMS over the flattened 21+C rows
 (``ops.nms`` with the greedy-NMS kernel), and the exact (pre_top_k=0)
 retry of batches whose certificate fails — on the decoded rows already
@@ -11,11 +13,16 @@ result.  JSON writing overlaps the next batch on a worker thread.
 
 The runner computes on ``device`` ("cuda" unless the caller passes another
 one) and raises when that device is not there; it never moves to the CPU
-by itself.  On CUDA tensors the pipeline goes through the two hand-written
+by itself.  On CUDA tensors the pipeline goes through the hand-written
 kernels; on CPU tensors (the tests) through their plain versions.
 
-Batched standard/aleatoric inference, the ``mesh_shape`` axes, ``quantize``
-and ``packed_host_input`` belong to later slices and raise here.
+``packed_host_input``: ``run()`` feeds the loader's host-packed
+space-to-depth uint8 planes (``data.pipeline.pack_planes_host``) instead of
+NHWC images; ``predict()`` keeps taking NHWC images and refuses that
+configuration, as the JAX runner does.
+
+Batched standard/aleatoric inference, the ``mesh_shape`` axes and
+``quantize`` are not ported yet and raise here.
 """
 
 from __future__ import annotations
@@ -69,9 +76,8 @@ class InferenceRunner:
             raise NotImplementedError("mesh_shape belongs to the multi-device slice")
         if config.quantize is not None:
             raise NotImplementedError("quantize belongs to the int8 slice")
-        if config.packed_host_input:
-            raise NotImplementedError(
-                "packed_host_input feeds the fused early backbone (next slice)")
+        # run() then feeds host-packed planes to the fused early backbone
+        self.packed = bool(config.packed_host_input)
         # the MC-dropout keys of every batch come from this CPU generator
         self.rng = torch.Generator(device="cpu")
         self.rng.manual_seed(seed)
@@ -113,12 +119,15 @@ class InferenceRunner:
     def _decoded_rows(self, params, stats, images, keys):
         """uint8 NHWC batch (tensor on the runner's device) + (T, 15) key
         table -> the decoded epistemic rows of every anchor,
-        (nb, N_total, 21+C): MC forward, then one decode launch per scale."""
-        imgs = images.float() / 255.0
+        (nb, N_total, 21+C): MC forward, then one decode launch per scale.
+        With ``packed_host_input`` ``images`` is the host-packed uint8 planes
+        (nb, 16, L); the scaling then happens inside the backbone."""
+        packed_hw = tuple(self.config.full_img_size[:2]) if self.packed else None
+        imgs = images if self.packed else images.float() / 255.0
         nb = imgs.shape[0]
         outs = mc_forward_cf(
             params, stats, imgs, spec=self.spec, T=self.config.T, rng=keys,
-            compute_dtype=self.model._dtype,
+            compute_dtype=self.model._dtype, packed_hw=packed_hw,
         )
         return torch.cat(
             [
@@ -167,6 +176,9 @@ class InferenceRunner:
         """uint8 NHWC image batch (numpy) -> (rows, valid) numpy detections,
         with the exact-NMS certificate retry applied.  ``keys``: a (T, 15)
         key table; None draws one (see ``draw_keys``)."""
+        if self.packed:
+            raise ValueError("predict() takes NHWC uint8 images; packed_host_input "
+                             "is a run()-loop feed")
         if keys is None:
             keys = self.draw_keys()
         images_d = torch.as_tensor(np.asarray(images)).to(self.device)
@@ -183,7 +195,7 @@ class InferenceRunner:
         os.makedirs(out_dir)  # refuses to overwrite an earlier run's output
 
         batch_size = self.device_batch_size()
-        loader = pipeline.TestLoader(cfg, batch_size=batch_size)
+        loader = pipeline.TestLoader(cfg, batch_size=batch_size, pack_planes=self.packed)
         n = 0
         self.retried = 0
         start = time.time()
@@ -203,7 +215,7 @@ class InferenceRunner:
 
         with ThreadPoolExecutor(max_workers=1) as writer:
             for batch in loader.batches():
-                images = batch["image"]
+                images = batch["packed"] if self.packed else batch["image"]
                 bsz = images.shape[0]
                 if bsz < batch_size:  # pad the final partial batch
                     pad = np.repeat(images[-1:], batch_size - bsz, axis=0)

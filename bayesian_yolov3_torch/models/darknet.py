@@ -131,9 +131,76 @@ def _fast_stem(params, stats, x, compute_dtype):
     return leaky_relu(h * scale + bias).to(compute_dtype)
 
 
+# 1/255 rounded to bf16: the packed input's scale, as the JAX package's
+# ``x.astype(bf16) * bf16(1/255)`` takes it
+_INV255_BF16 = float(torch.tensor(1.0 / 255.0, dtype=torch.bfloat16))
+
+
+def _fused_early_stages(params, stats, x, compute_dtype, packed_hw=None):
+    """Convs 0-25 — space-to-depth stem, res64, stride-2 64->128, res128 x2,
+    stride-2 128->256, res256 x8 — through the fused conv kernels of
+    ``ops.cuda_conv`` (hand-written CUDA on a CUDA tensor, their plain
+    versions on a CPU tensor).  Inference / frozen BN only, bf16 activations
+    with float32 accumulation whatever ``compute_dtype`` is; the result is
+    cast to ``compute_dtype``.
+
+    Returns ``(h, next_conv_index, skip8)``: ``h`` is the stride-8 skip
+    activation (N, H/8, W/8, 256) == ``skip8`` and ``next_conv_index`` is 26,
+    for every geometry (the kernels mask ragged tiles themselves).
+
+    ``packed_hw=(H, W)``: ``x`` is the host-packed space-to-depth
+    channels-first uint8 planes (N, 16, (H/2+16)*wp) of
+    ``data.pipeline.pack_planes_host``.  They are cast and scaled on the
+    device (``u8 -> bf16``, times ``bf16(1/255)``: not the rounding of
+    ``float/255 -> bf16``), and a strided view of the 12 image planes feeds
+    the same stem kernel.
+    """
+    from ..data.pipeline import PACK_PAD, packed_row_pitch
+    from ..ops import cuda_conv as cc
+
+    bf16 = torch.bfloat16
+    if packed_hw is not None:
+        H, W = packed_hw
+        h2, w2 = H // 2, W // 2
+        rows, wp = h2 + 2 * PACK_PAD, packed_row_pitch(W)
+        if x.dtype != torch.uint8 or x.dim() != 3 or tuple(x.shape[1:]) != (16, rows * wp):
+            raise ValueError(
+                f"packed input {tuple(x.shape)} {x.dtype}: want uint8 (N, 16, {rows * wp}) "
+                f"for a {H}x{W} image")
+        planes = x.to(bf16) * _INV255_BF16  # bf16 x bf16, rounded once to bf16
+        xs = planes.reshape(-1, 16, rows, wp)[:, :12, PACK_PAD:PACK_PAD + h2, :w2]
+        xs = xs.permute(0, 2, 3, 1)  # (N, H/2, W/2, 12), a view
+    else:
+        xs = _space_to_depth(x.to(bf16))
+
+    def bn_of(i):
+        p, s = params[_conv_name(i)], stats[_conv_name(i)]
+        return cc.fold_bn(p["gamma"], p["beta"], s["mean"], s["var"])
+
+    def w_of(i):
+        return params[_conv_name(i)]["w"]
+
+    def res(h, i):
+        return cc.fused_res_block(h, w_of(i), w_of(i + 1), bn_of(i), bn_of(i + 1))
+
+    k3, k2 = _stem_kernels(w_of(0).to(bf16), w_of(1).to(bf16))
+    # conv_00's BN tiled over the four pixel phases of its 128 s2d channels
+    bn1 = tuple(v.repeat(4) for v in bn_of(0))
+    h = cc.fused_stem(xs, k3, k2, bn1, bn_of(1))
+    h = res(h, 2)
+    h = cc.fused_downsample_packed(h, w_of(4), bn_of(4))
+    h = res(res(h, 5), 7)
+    h = cc.fused_downsample_packed(h, w_of(9), bn_of(9))
+    for i in range(10, 26, 2):  # the eight 256-wide blocks
+        h = res(h, i)
+    skip8 = h.to(compute_dtype)
+    return skip8, 26, skip8
+
+
 def _fused_early_auto(x: torch.Tensor, compute_dtype) -> bool:
     """Auto-gate for the fused early stages (inference only, as the whole
-    backbone here): bf16 on the card."""
+    backbone here): bf16 on the card.  A CPU tensor keeps the plain
+    convolutions unless the caller passes ``fused_early=True``."""
     return compute_dtype == torch.bfloat16 and x.is_cuda
 
 
@@ -154,13 +221,16 @@ def darknet53(
     space-to-depth domain (see ``_stem_kernels``) — numerically the same
     function.
 
-    ``fused_early`` (None = auto): the early backbone (convs 0-25) as
-    hand-written fused conv kernels — bf16 inference on a CUDA tensor.
-    Those kernels belong to the next slice of this package, so the branch
-    raises instead of running plain convolutions in their place; pass
-    ``fused_early=False`` to run bf16 through the plain convolutions
-    knowingly.  ``packed_hw`` (host-packed input planes) implies the fused
-    branch.
+    ``fused_early`` (None = auto: bf16 on a CUDA tensor): convs 0-25 run
+    through the fused conv kernels (``_fused_early_stages``) — numerically
+    the plain bf16 path up to rounding boundaries (the fused residual adds
+    its skip in float32 before the one rounding).  ``fused_early=True`` on a
+    CPU tensor takes the kernels' plain versions; ``fused_early=False`` runs
+    bf16 through the plain convolutions.
+
+    ``packed_hw=(H, W)``: ``x`` is host-packed space-to-depth channels-first
+    uint8 planes (``data.pipeline.pack_planes_host``) instead of an NHWC
+    image; implies the fused branch.
     """
     if training:
         raise NotImplementedError("backbone batch-statistics BN belongs to the training slice")
@@ -168,13 +238,6 @@ def darknet53(
         fused_early = True
     elif fused_early is None:
         fused_early = _fused_early_auto(x, compute_dtype)
-    if fused_early:
-        raise NotImplementedError(
-            "the fused early backbone (bf16 stem / residual / stride-2 conv "
-            "kernels) is the next slice of this package; run "
-            "compute_dtype='float32', or pass fused_early=False to take the "
-            "plain convolutions"
-        )
 
     def block(i, h, stride):
         name = _conv_name(i)
@@ -182,7 +245,11 @@ def darknet53(
                           compute_dtype=compute_dtype)
 
     skip8 = skip16 = None
-    if fast_stem:
+    if fused_early:
+        h, i, skip8 = _fused_early_stages(params, stats, x, compute_dtype,
+                                          packed_hw=packed_hw)
+        remaining = list(_STAGES)[3:]  # the 512 and 1024 stages
+    elif fast_stem:
         h = _fast_stem(params, stats, x, compute_dtype)
         i = 2
         stages = list(_STAGES)

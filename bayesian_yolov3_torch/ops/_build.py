@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds); the sources compile in parallel, one ``nvcc`` each.
 Libraries land in ``build/bayesian_yolov3_torch/`` under the repository
-root, named by a hash of their source, so an unchanged source is built
-once per checkout.
+root, named by a hash of their source, of every shared header
+(``csrc/*.cuh``) and of the compiler flags, so an unchanged source is
+built once per checkout and an edited header rebuilds its users.
 
 Importing this module needs neither ``nvcc`` nor a card; only
 ``load(...)`` does.  A build or load failure raises — no caller falls back
@@ -52,9 +53,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(build_dir(), f"lib{name}_{digest}.so")
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read() + b"\0")
+    return os.path.join(build_dir(), f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def build_all(verbose: bool = False) -> Dict[str, str]:

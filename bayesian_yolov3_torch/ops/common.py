@@ -125,6 +125,9 @@ def dropout(x: torch.Tensor, rate: float,
         raise ValueError(f"leading dim {x.shape[0]} is not a multiple of {s} samples")
     keep = 1.0 - rate
     thresh = min(round(keep * 65536.0), 65535)
+    # the divisor in x's own type, as the JAX package's ``x / keep`` takes it
+    # (a weakly typed scalar): 0.8984375 for bf16, not 0.9
+    keep = torch.tensor(keep, dtype=x.dtype).item()
     nb = x.shape[0] // s
     per_sample = (nb,) + tuple(x.shape[1:])
     idx = torch.arange(math.prod(per_sample), dtype=torch.int64,
@@ -182,11 +185,18 @@ def detection_conv_cf(params: Dict, feats: torch.Tensor, *, compute_dtype=torch.
     """
     t, cin = feats.shape[0], feats.shape[-1]
     m = math.prod(feats.shape[1:-1])
-    if compute_dtype == torch.float32:
-        _true_float32()
     x = feats.reshape(t * m, cin).to(compute_dtype)
     kernel = params["w"].reshape(-1, cin).to(compute_dtype)  # (ch, cin)
-    out = torch.matmul(kernel, x.t()).float()  # (ch, T*M)
+    if compute_dtype == torch.float32:
+        _true_float32()
+        out = torch.matmul(kernel, x.t())  # (ch, T*M)
+    elif x.is_cuda:
+        # bf16 operands, float32 accumulator AND output (the JAX package's
+        # preferred_element_type): the logits are never rounded to bf16
+        out = torch.mm(kernel, x.t(), out_dtype=torch.float32)
+    else:
+        # CPU: no mixed-type product; bf16 x bf16 products are exact in float32
+        out = torch.matmul(kernel.float(), x.float().t())
     out = out + params["b"].float()[:, None]
     return out.reshape(-1, t, m)
 

@@ -15,11 +15,13 @@ build       seconds to build the CUDA kernels
 kernels     each kernel against its plain PyTorch version on the card at the
             main path's shapes; times by CUDA events
 small_ref   the whole pipeline at 64x96 on the card (kernels, cuDNN) against
-            the same pipeline on the CPU (plain versions)
-main_path   epistemic inference at full width — bayesian, 1024x1920, T=30,
-            float32 — through InferenceRunner.run(): tfrecord -> checkpoint ->
-            ECP JSON; kernel launch counters read around it
-timing      img/s of the main path after a warm-up, and a stage breakdown
+            the same pipeline on the CPU (plain versions), in float32 and bf16
+main_path   epistemic inference at full width — bayesian, 1024x1920, T=30 —
+            through InferenceRunner.run(): tfrecord -> checkpoint -> ECP JSON,
+            in bf16 (the Config default: fused early backbone, five kernels)
+            and in float32 (two kernels); kernel launch counters set to 0
+            before each run and read after it; a packed_host_input run
+timing      img/s of both main paths after a warm-up, and a stage breakdown
 
 Then the card line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
@@ -44,13 +46,15 @@ from bayesian_yolov3_torch.core.priors import priors_as_array
 from bayesian_yolov3_torch.data import pipeline, proto, tfrecord
 from bayesian_yolov3_torch.infer.runner import InferenceRunner
 from bayesian_yolov3_torch.models import darknet, yolov3
-from bayesian_yolov3_torch.ops import _build, common, cuda_epistemic, cuda_nms, nms
+from bayesian_yolov3_torch.ops import (
+    _build, common, cuda_conv, cuda_epistemic, cuda_nms, nms)
 from bayesian_yolov3_torch.train.checkpoints import CheckpointStore
 from bayesian_yolov3_torch.train.loop import partition_params
 
 # published peaks of one H100 SXM (NVIDIA data sheet): the yardstick of bound_ms
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12  # dense, tensor cores
 
 IMG = (1024, 1920, 3)
 T = 30
@@ -65,6 +69,16 @@ SCALES = ((32, 60), (64, 120), (128, 240))  # strides 32, 16, 8 of 1024x1920
 # terms cancel) as in the JAX package's own kernel test; column 12, the 4x4
 # covariance determinant, is a difference of products of near-equal numbers.
 EPI_TOL = (((0, 12), 1e-4, 1e-5), ((12, 13), 1e-3, 1e-6), ((13, 21 + C), 1e-4, 2e-4))
+
+# the three conv kernels against their plain versions: both round to bf16 at
+# the same points and differ in the order of the float32 sums, so an element
+# differs where a sum lies on a rounding boundary, by one bf16 step (2^-8
+# relative); a flipped intermediate can move the output by a second step.
+# Two steps relative, plus 0.01 absolute for values near zero (one step of an
+# O(1) summand that cancelled).  The JAX package's own bound for its kernels
+# is rtol = atol = 0.05.
+CONV_RTOL, CONV_ATOL = 2.0 ** -6, 1e-2
+CONV_MAX_DIFF_SHARE = 0.05  # of elements that differ at all
 
 
 def emit(phase, **kw):
@@ -244,6 +258,208 @@ def check_nms(dev):
     }
 
 
+# -- the fused early backbone ------------------------------------------------
+
+
+def _bound(nbytes, flops):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return {"bound_ms": max(t_b, t_f) * 1e3, "bound_by": "bytes" if t_b >= t_f else "operations",
+            "bytes": int(nbytes), "flops": int(flops)}
+
+
+def _conv_weights(gen, cout, cin, k, dev):
+    w = torch.randn((cout, cin, k, k), generator=gen, device=dev)
+    return w * math.sqrt(2.0 / (cin * k * k))
+
+
+def _conv_bn(gen, c, dev):
+    """A folded BN whose bias is far from 0 (|bias| in 0.2..0.6), so a border
+    that is conv-of-zeros instead of zero would show."""
+    scale = torch.rand(c, generator=gen, device=dev) + 0.5
+    mag = torch.rand(c, generator=gen, device=dev) * 0.4 + 0.2
+    sign = torch.where(torch.rand(c, generator=gen, device=dev) < 0.5, -1.0, 1.0)
+    return scale, mag * sign
+
+
+def _conv_agree(name, got, want):
+    """Kernel against plain version: shape, finiteness, tolerance; returns
+    max abs error (all / border ring) and the share of differing elements."""
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype == torch.bfloat16,
+          f"{name}: {tuple(got.shape)} {got.dtype} vs plain {tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
+    err = (g - w).abs()
+    share = float((err > 0).float().mean())
+    ring = torch.cat([err[:, 0].flatten(), err[:, -1].flatten(),
+                      err[:, :, 0].flatten(), err[:, :, -1].flatten()])
+    bad = err > CONV_ATOL + CONV_RTOL * w.abs()
+    check(not bool(bad.any()),
+          f"{name} disagrees with its plain version (rtol {CONV_RTOL}, atol {CONV_ATOL}): "
+          f"{int(bad.sum())} elements, max abs {float(err.max())}, border ring max abs "
+          f"{float(ring.max())}, {share:.4%} of elements differ at all")
+    check(share <= CONV_MAX_DIFF_SHARE,
+          f"{name}: {share:.4%} of elements differ from the plain version")
+    return {"max_abs_err": float(err.max()), "border_max_abs_err": float(ring.max()),
+            "differing_share": share}
+
+
+def _per_image(name, shapes, counts, **extra):
+    """One entry of the kernels line: times and bounds summed over the launches
+    of one 1024x1920 image (``counts`` per shape), errors over every shape."""
+    main = [(s, n) for s, n in zip(shapes, counts) if n]
+    tot = {k: sum(s[k] * n for s, n in main)
+           for k in ("ms", "kernel_only_ms", "plain_ms", "bound_ms", "unfused_ms")
+           if k in shapes[0]}
+    # bound_ms sums each launch's own bound; bound_by names what binds the
+    # image's launches taken together
+    t_bytes = sum(s["bytes"] * n for s, n in main) / HBM_BYTES_PER_S
+    t_flops = sum(s["flops"] * n for s, n in main) / BF16_FLOPS
+    return {"name": name, "route": "cuda",
+            "source": f"bayesian_yolov3_torch/csrc/{name}.cu",
+            "max_abs_err": max(s["max_abs_err"] for s in shapes),
+            "border_max_abs_err": max(s["border_max_abs_err"] for s in shapes),
+            "differing_share": max(s["differing_share"] for s in shapes),
+            **tot, "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "tolerance": {"rtol": CONV_RTOL, "atol": CONV_ATOL},
+            "launches_per_image": sum(counts), **extra, "shapes": shapes}
+
+
+def check_res_block(dev, flush):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    # (shape, launches per 1024x1920 image); the last: ragged tiles, batch 2
+    cases = [((1, 512, 960, 64), 1), ((1, 256, 480, 128), 2), ((1, 128, 240, 256), 8),
+             ((2, 10, 18, 128), 0), ((2, 5, 9, 256), 0), ((1, 20, 36, 64), 0)]
+    shapes = []
+    for shape, per_img in cases:
+        n, h, w, c = shape
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        wa, wb = _conv_weights(gen, c // 2, c, 1, dev), _conv_weights(gen, c, c // 2, 3, dev)
+        bna, bnb = _conv_bn(gen, c // 2, dev), _conv_bn(gen, c, dev)
+        got = cuda_conv.fused_res_block(x, wa, wb, bna, bnb)
+        want = cuda_conv.fused_res_block_plain(x, wa, wb, bna, bnb)
+        rec = {"shape": list(shape), **_conv_agree(f"fused_res_block{shape}", got, want)}
+        del got, want
+        if per_img:
+            wk = cuda_conv._res_kernel_weights(wa, wb)
+            pa = ({"w": wa, "gamma": bna[0], "beta": bna[1]}, {"w": wb, "gamma": bnb[0], "beta": bnb[1]})
+            st = [{"mean": torch.zeros_like(b[0]), "var": torch.ones_like(b[0]) - common.BN_EPS}
+                  for b in (bna, bnb)]
+
+            def unfused():  # the conv_block composition: cuDNN bf16 + elementwise passes
+                t = common.conv_block(pa[0], st[0], x, compute_dtype=torch.bfloat16)
+                return common.conv_block(pa[1], st[1], t, compute_dtype=torch.bfloat16) + x
+
+            rec.update(
+                ms=event_ms(lambda: cuda_conv.fused_res_block(x, wa, wb, bna, bnb), 10, flush),
+                kernel_only_ms=event_ms(lambda: cuda_conv._res_launch(x, *wk, bna, bnb), 10, flush),
+                plain_ms=event_ms(lambda: cuda_conv.fused_res_block_plain(x, wa, wb, bna, bnb),
+                                  3, flush),
+                unfused_ms=event_ms(unfused, 5, flush),
+                **_bound(2 * x.numel() * 2 + (wa.numel() + wb.numel()) * 2 + 3 * c * 4,
+                         n * h * w * 10 * c * c))
+        shapes.append(rec)
+    return _per_image(
+        "fused_res_block", shapes, [k for _, k in cases], library_ms=None,
+        replaces="bayesian_yolov3_tpu/ops/pallas_conv.py:282",
+        note="ms (the wrapper as the main path calls it, weight relayout included), "
+             "kernel_only_ms, plain_ms, bound_ms, unfused_ms: the 11 launches of one "
+             "1024x1920 image summed (1 at C=64, 2 at C=128, 8 at C=256); no single "
+             "PyTorch call computes the block, so library_ms is null and unfused_ms "
+             "times the conv_block composition (cuDNN bf16), which the port never "
+             "calls for these convs on the card")
+
+
+def check_downsample(dev, flush):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = [((1, 512, 960, 64), 1), ((1, 256, 480, 128), 1),
+             ((2, 10, 18, 128), 0), ((2, 11, 19, 64), 0)]
+    shapes = []
+    for shape, per_img in cases:
+        n, h, w, c = shape
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        wt, bn = _conv_weights(gen, 2 * c, c, 3, dev), _conv_bn(gen, 2 * c, dev)
+        got = cuda_conv.fused_downsample(x, wt, bn)
+        want = cuda_conv.fused_downsample_plain(x, wt, bn)
+        rec = {"shape": list(shape), **_conv_agree(f"fused_downsample{shape}", got, want)}
+        check(torch.equal(cuda_conv.fused_downsample_packed(x, wt, bn), got),
+              "fused_downsample_packed differs from fused_downsample")
+        n_out = got.numel()
+        del got, want
+        if per_img:
+            wk = cuda_conv._down_kernel_weights(wt)
+            xc = x.permute(0, 3, 1, 2)  # channels_last view of the NHWC tensor
+            wl = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            rec.update(
+                ms=event_ms(lambda: cuda_conv.fused_downsample(x, wt, bn), 10, flush),
+                kernel_only_ms=event_ms(lambda: cuda_conv._down_launch(x, wk, bn), 10, flush),
+                plain_ms=event_ms(lambda: cuda_conv.fused_downsample_plain(x, wt, bn), 3, flush),
+                library_ms=event_ms(lambda: torch.nn.functional.conv2d(
+                    xc, wl, stride=2, padding=1), 10, flush),
+                **_bound(x.numel() * 2 + n_out * 2 + wt.numel() * 2 + 4 * c * 4,
+                         (n_out // (2 * c)) * 2 * 9 * c * 2 * c))
+        shapes.append(rec)
+    counts = [k for _, k in cases]
+    return _per_image(
+        "fused_downsample", shapes, counts,
+        library_ms=sum(s["library_ms"] * k for s, k in zip(shapes, counts) if k),
+        replaces="bayesian_yolov3_tpu/ops/pallas_conv.py:488",
+        also_replaces="bayesian_yolov3_tpu/ops/pallas_conv.py:395",
+        note="the 2 launches of one 1024x1920 image summed (64->128 at 512x960, 128->256 "
+             "at 256x480); library_ms: one F.conv2d in bf16 channels_last of the same "
+             "convolution, WITHOUT the BN / LeakyReLU epilogue; the port never calls it "
+             "for these convs on the card")
+
+
+def check_stem(dev, flush):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    p0 = {"w": _conv_weights(gen, 32, 3, 3, dev)}
+    p1 = {"w": _conv_weights(gen, 64, 32, 3, dev)}
+    k3, k2 = darknet._stem_kernels(p0["w"].to(torch.bfloat16), p1["w"].to(torch.bfloat16))
+    s1, b1 = _conv_bn(gen, 32, dev)
+    bn1, bn2 = (s1.repeat(4), b1.repeat(4)), _conv_bn(gen, 64, dev)
+    cases = [((1, 1024, 1920), 1), ((2, 40, 72), 0), ((1, 18, 38), 0)]
+    shapes = []
+    for (n, h, w), per_img in cases:
+        img = torch.rand((n, h, w, 3), generator=gen, device=dev)
+        x = darknet._space_to_depth(img.to(torch.bfloat16))
+        got = cuda_conv.fused_stem(x, k3, k2, bn1, bn2)
+        want = cuda_conv.fused_stem_plain(x, k3, k2, bn1, bn2)
+        rec = {"shape": list(x.shape), **_conv_agree(f"fused_stem{tuple(x.shape)}", got, want)}
+        # a strided view (channels-first memory, as the host-packed planes give)
+        x_cf = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        check(not x_cf.is_contiguous(), "the strided stem input is contiguous")
+        check(torch.equal(cuda_conv.fused_stem(x_cf, k3, k2, bn1, bn2), got),
+              "fused_stem: a strided view gives other values than the contiguous tensor")
+        del got, want
+        if per_img:
+            wk = cuda_conv._stem_kernel_weights(k3, k2)
+            params = {"conv_00": {**p0, "gamma": s1, "beta": b1},
+                      "conv_01": {**p1, "gamma": bn2[0], "beta": bn2[1]}}
+            stats = {k: {"mean": torch.zeros_like(v["gamma"]),
+                         "var": torch.ones_like(v["gamma"]) - common.BN_EPS}
+                     for k, v in params.items()}
+            px = n * (h // 2) * (w // 2)
+            rec.update(
+                ms=event_ms(lambda: cuda_conv.fused_stem(x, k3, k2, bn1, bn2), 10, flush),
+                kernel_only_ms=event_ms(lambda: cuda_conv._stem_launch(x, *wk, bn1, bn2),
+                                        10, flush),
+                plain_ms=event_ms(lambda: cuda_conv.fused_stem_plain(x, k3, k2, bn1, bn2),
+                                  3, flush),
+                unfused_ms=event_ms(lambda: darknet._fast_stem(params, stats, img,
+                                                               torch.bfloat16), 5, flush),
+                **_bound(px * (12 + 64) * 2 + (128 * 108 + 64 * 512) * 2 + 192 * 8,
+                         px * 2 * (108 * 128 + 512 * 64)))
+        shapes.append(rec)
+    return _per_image(
+        "fused_stem", shapes, [k for _, k in cases], library_ms=None,
+        replaces="bayesian_yolov3_tpu/ops/pallas_conv.py:139",
+        note="one launch per 1024x1920 image, on its (1, 512, 960, 12) space-to-depth "
+             "form; no single PyTorch call computes the stem, so library_ms is null and "
+             "unfused_ms times models.darknet._fast_stem in bf16 (two cuDNN convolutions "
+             "plus elementwise passes, space-to-depth included)")
+
+
 # --------------------------------------------------------------------------
 # the model, data and checkpoint of the main path
 # --------------------------------------------------------------------------
@@ -298,12 +514,13 @@ def write_dataset(path, rng, n, hw):
 
 
 def make_config(tmp, name, img_size, t, pattern, **kw):
+    """``compute_dtype`` is the Config default (bfloat16) unless ``kw`` says."""
     return Config(
         model="bayesian", inference_mode=True, T=t, batch_size=1,
-        compute_dtype="float32", full_img_size=img_size, cls_cnt=C,
-        checkpoint_path=os.path.join(tmp, "ckpt"), run_id=name,
-        out_path=os.path.join(tmp, "out", name), cpu_thread_cnt=2,
-        data=DataConfig(file_pattern=pattern), **kw,
+        full_img_size=img_size, cls_cnt=C,
+        checkpoint_path=os.path.join(tmp, "ckpt"), run_id=name, cpu_thread_cnt=2,
+        data=DataConfig(file_pattern=pattern),
+        **{"out_path": os.path.join(tmp, "out", name), **kw},
     )
 
 
@@ -316,63 +533,111 @@ def save_checkpoint(cfg, params, stats, step):
 def reset_counters():
     cuda_epistemic.launch_count = 0
     cuda_nms.launch_count = 0
+    for name in cuda_conv.launch_counts:
+        cuda_conv.launch_counts[name] = 0
 
 
-def small_reference(tmp, dev):
-    """64x96, T=4, two images: the card's pipeline (cuDNN convs, both
-    kernels) against the CPU's (plain versions), same weights, same fixed
-    masks, stage by stage.  NMS picks are compared on ONE set of decoded
-    rows: on rows that differ in the last bits two near-tied scores could
-    swap places, which would say nothing about the kernel."""
+def read_counters():
+    return {"epistemic_decode": cuda_epistemic.launch_count,
+            "greedy_nms": cuda_nms.launch_count, **cuda_conv.launch_counts}
+
+
+# bf16 rows, card against CPU or packed against image-fed input: the
+# convolutions round to bf16 in other places (cuDNN / the conv kernels on the
+# card, oneDNN / the plain versions on the CPU; one bf16 step on the input
+# pixels for the packed feed), which the T-sample moments see as jitter.  Box
+# corners within 0.01 of the unit image, score columns within 0.05, variance
+# columns within rtol 0.35 (the JAX package's bf16-against-float32 jitter
+# bound) — each held on at least 99 % of the anchors, since a single anchor's
+# variance over T samples may sit at a rounding cliff — and the relative L2
+# distance of all box and score columns within 0.02.
+def rows_agree_bf16(name, got, want):
+    check(got.shape == want.shape, f"{name}: shapes {tuple(got.shape)} {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite rows")
+    shares = {}
+    for label, cols, rtol, atol in (("corners", slice(0, 4), 0.0, 0.01),
+                                    ("variances", slice(4, 12), 0.35, 1e-6),
+                                    ("scores", slice(14, 21), 0.0, 0.05)):
+        g, w = got[..., cols], want[..., cols]
+        ok = (g - w).abs() <= atol + rtol * w.abs()
+        shares[label] = float(ok.float().mean())
+        check(shares[label] >= 0.99, f"{name}: only {shares[label]:.2%} of the {label} "
+                                     f"columns within rtol {rtol} / atol {atol}")
+    cols = [0, 1, 2, 3, 14, 15, 16, 17, 18, 19, 20]
+    rel = float((got[..., cols] - want[..., cols]).norm() / want[..., cols].norm())
+    check(rel <= 0.02, f"{name}: relative L2 distance {rel} of boxes and scores")
+    return {"within_tolerance_share": shares, "rel_l2_boxes_scores": rel}
+
+
+def small_reference(tmp, dev, dtype):
+    """64x96, T=4, two images: the card's pipeline (cuDNN convs, every kernel)
+    against the CPU's (plain versions), same weights, same fixed masks, stage
+    by stage.  bf16 takes the fused early backbone on both (``fused_early``
+    forced on the CPU, where the auto-gate would take the plain convolutions).
+    NMS picks are compared on ONE set of decoded rows: on rows that differ in
+    the last bits two near-tied scores could swap places, which would say
+    nothing about the kernel."""
     cfg = make_config(tmp, "small", (64, 96, 3), 4, "", fixed_mc_masks=7,
-                      nms_max_boxes=50, nms_pre_top_k=0)
+                      nms_max_boxes=50, nms_pre_top_k=0, compute_dtype=dtype)
     spec = cfg.variant_spec
+    tdtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
     params, stats = random_state(3, spec, "cpu")
     img = np.random.default_rng(5).integers(0, 256, (2, 64, 96, 3), dtype=np.uint8)
     x = torch.from_numpy(img).float() / 255.0
     pri = {s: torch.from_numpy(p) for s, p in priors_as_array(cfg.resolved_priors()).items()}
-    flats = {}
+    flats, chains = {}, {}
     with torch.no_grad():
         for d in ("cpu", dev):
-            outs = yolov3.mc_forward_cf(tree_to(params, d), tree_to(stats, d), x.to(d),
-                                        spec=spec, T=4, fixed_masks=7)
+            p_d, s_d = tree_to(params, d), tree_to(stats, d)
+            outs = yolov3.mc_forward_cf(p_d, s_d, x.to(d), spec=spec, T=4, fixed_masks=7,
+                                        compute_dtype=tdtype,
+                                        fused_early=dtype == "bfloat16")
             flats[str(d)] = torch.cat([
                 cuda_epistemic.fused_epistemic_decode_cf_batched(
                     raw, pri[s].to(d), n_imgs=2, h=hw[0], w=hw[1], cls_cnt=C, layer_id=i)
                 for i, ((raw, hw), s) in enumerate(zip(outs, (32, 16, 8)))], dim=1)
+            if dtype == "bfloat16":
+                chains[str(d)] = darknet._fused_early_stages(
+                    p_d["backbone"], s_d["backbone"], x.to(d), tdtype)[0].float().cpu()
     cpu_flat, gpu_flat = flats["cpu"], flats[str(dev)].cpu()
     check(cpu_flat.shape == gpu_flat.shape == (2, 3 * (6 + 24 + 96), 21 + C), "small_ref shape")
-    # 75 float32 convs sum in another order on the card: ten times the
-    # kernel-vs-plain tolerances
-    for (lo, hi), rtol, atol in EPI_TOL:
-        check(torch.allclose(gpu_flat[..., lo:hi], cpu_flat[..., lo:hi],
-                             rtol=10 * rtol, atol=10 * atol),
-              f"small_ref: decoded columns {lo}:{hi} differ between card and CPU")
+    out = {}
+    if dtype == "float32":
+        # 75 float32 convs sum in another order on the card: ten times the
+        # kernel-vs-plain tolerances
+        for (lo, hi), rtol, atol in EPI_TOL:
+            check(torch.allclose(gpu_flat[..., lo:hi], cpu_flat[..., lo:hi],
+                                 rtol=10 * rtol, atol=10 * atol),
+                  f"small_ref: decoded columns {lo}:{hi} differ between card and CPU")
+    else:
+        # the fused chain alone, 14 kernels on the card against their 14 plain
+        # versions on the CPU: same rounding points, other sum orders, flips
+        # carried from stage to stage
+        g, w = chains[str(dev)], chains["cpu"]
+        out["fused_chain_rel_l2"] = float((g - w).norm() / w.norm())
+        out["fused_chain_max_abs_err"] = float((g - w).abs().max())
+        check(out["fused_chain_rel_l2"] <= 0.01 and
+              out["fused_chain_max_abs_err"] <= 0.05 * float(w.abs().max()),
+              f"small_ref: fused chain on the card against the CPU: {out}")
+        out.update(rows_agree_bf16("small_ref bf16", gpu_flat, cpu_flat))
     got = nms.nms_select_batch(cpu_flat.to(dev), 14, 50, 0.5, pre_top_k=0,
                                with_certificate=True)
     want = nms.nms_select_batch(cpu_flat, 14, 50, 0.5, pre_top_k=0, with_certificate=True)
     for g, w in zip(got, want):
         check(torch.equal(g.cpu(), w), "small_ref: NMS on the card differs from the CPU's")
-    return {"valid": int(want[1].sum()),
-            "max_abs_err": float((gpu_flat - cpu_flat).abs().max())}
+    return {"dtype": dtype, "valid": int(want[1].sum()),
+            "max_abs_err": float((gpu_flat - cpu_flat).abs().max()), **out}
 
 
-def main_path(tmp, dev, n_frames=3):
-    rng = np.random.default_rng(11)
-    pattern, frames = write_dataset(os.path.join(tmp, "data"), rng, n_frames, IMG[:2])
-    cfg = make_config(tmp, "smoke", IMG, T, pattern, nms_max_boxes=MAX_OUT,
-                      nms_pre_top_k=PRE_TOP_K)
-    params, stats = random_state(0, cfg.variant_spec, "cpu")
-    save_checkpoint(cfg, params, stats, step=1)
-    del params, stats
-
-    runner = InferenceRunner(cfg, seed=0)  # device: the card, by default
+def run_and_check(runner, n_frames):
+    """runner.run() with the launch counters set to 0 just before and read
+    just after; every frame's ECP JSON checked."""
     reset_counters()
     t0 = time.time()
     out_dir = runner.run()
     torch.cuda.synchronize()
     wall = time.time() - t0
-    check(out_dir.endswith("_1"), f"output dir {out_dir} lacks the step suffix")
+    launches = read_counters()
     files = sorted(glob.glob(os.path.join(out_dir, "*.json")))
     check(len(files) == n_frames, f"{len(files)} JSON files for {n_frames} frames")
     n_dets = []
@@ -386,8 +651,32 @@ def main_path(tmp, dev, n_frames=3):
             check("x_var_epi" in d and "obj_mutual_info" in d and "total_var_epi" in d,
                   "epistemic fields missing")
         n_dets.append(len(dets))
-    check(cuda_epistemic.launch_count > 0 and cuda_nms.launch_count > 0,
-          "the main path launched no kernel")
+    return out_dir, launches, {"detections": n_dets, "launches": launches,
+                               "exact_retries": runner.retried, "wall_s_incl_load": wall}
+
+
+def main_path(tmp, dev, n_frames=3):
+    rng = np.random.default_rng(11)
+    pattern, frames = write_dataset(os.path.join(tmp, "data"), rng, n_frames, IMG[:2])
+    kw = dict(nms_max_boxes=MAX_OUT, nms_pre_top_k=PRE_TOP_K)
+    cfg = make_config(tmp, "smoke", IMG, T, pattern, **kw)  # bf16: the Config default
+    check(cfg.compute_dtype == "bfloat16", "Config's default compute_dtype is not bfloat16")
+    params, stats = random_state(0, cfg.variant_spec, "cpu")
+    save_checkpoint(cfg, params, stats, step=1)
+    del params, stats
+
+    # bf16, the default: the fused early backbone and all five kernels
+    runner = InferenceRunner(cfg, seed=0)  # device: the card, by default
+    out_dir, launches, bf16_summary = run_and_check(runner, n_frames)
+    check(out_dir.endswith("_1"), f"output dir {out_dir} lacks the step suffix")
+    check(all(n > 0 for n in launches.values()),
+          f"the bf16 main path launched no kernel of: "
+          f"{[k for k, n in launches.items() if not n]}")
+    passes = launches["fused_stem"]  # one stem launch per pipeline pass
+    check(launches["fused_res_block"] == 11 * passes
+          and launches["fused_downsample"] == 2 * passes
+          and launches["epistemic_decode"] == 3 * passes,
+          f"launches per pipeline pass are not 1 / 11 / 2 / 3: {launches}")
     try:
         runner.run()
     except FileExistsError:
@@ -395,27 +684,31 @@ def main_path(tmp, dev, n_frames=3):
     else:
         raise AssertionError("run() overwrote an existing output directory")
 
+    # float32: true-float32 cuDNN convolutions, decode and NMS kernels
+    cfg32 = make_config(tmp, "smoke", IMG, T, pattern, compute_dtype="float32",
+                        out_path=os.path.join(tmp, "out", "smoke_f32"), **kw)
+    runner32 = InferenceRunner(cfg32, seed=0)
+    _, launches32, f32_summary = run_and_check(runner32, n_frames)
+    check(launches32["epistemic_decode"] > 0 and launches32["greedy_nms"] > 0,
+          "the float32 main path launched no kernel")
+    check(not any(launches32[k] for k in cuda_conv.launch_counts),
+          "the float32 path went through the fused conv kernels")
+
     # the same frames through weights whose certificate fails: the exact
-    # (pre_top_k=0) retry inside run()
-    cfg_wide = make_config(tmp, "smoke_wide", IMG, T, pattern, nms_max_boxes=MAX_OUT,
-                           nms_pre_top_k=PRE_TOP_K)
+    # (pre_top_k=0) retry inside run(), in float32
+    cfg_wide = make_config(tmp, "smoke_wide", IMG, T, pattern, compute_dtype="float32", **kw)
     save_checkpoint(cfg_wide, *random_state(0, cfg.variant_spec, "cpu", wide_boxes=True), step=2)
     wide = InferenceRunner(cfg_wide, seed=1)
-    wide_files = sorted(glob.glob(os.path.join(wide.run(), "*.json")))
-    torch.cuda.synchronize()
-    check(len(wide_files) == n_frames, "retry run: JSON files missing")
-    launches = {"epistemic_decode": cuda_epistemic.launch_count,
-                "greedy_nms": cuda_nms.launch_count}
-    retried = runner.retried + wide.retried
+    _, _, wide_summary = run_and_check(wide, n_frames)
+    retried = runner.retried + runner32.retried + wide.retried
     params, stats, _ = runner.load_state()
-    if not retried:  # both runs certified: drive the exact program once by hand
+    if not retried:  # every run certified: drive the exact program once by hand
         runner.exact_pipeline(params, stats, torch.from_numpy(frames[0][None]).to(dev),
                               runner.draw_keys())
         torch.cuda.synchronize()
 
     # fixed masks: the same image twice gives the same rows
-    cfg_fixed = make_config(tmp, "smoke", IMG, T, pattern, nms_max_boxes=MAX_OUT,
-                            nms_pre_top_k=PRE_TOP_K, fixed_mc_masks=7)
+    cfg_fixed = make_config(tmp, "smoke", IMG, T, pattern, fixed_mc_masks=7, **kw)
     fixed = InferenceRunner(cfg_fixed, seed=0)
     rows_a, valid_a = fixed.predict(params, stats, frames[0][None])
     rows_b, valid_b = fixed.predict(params, stats, frames[0][None])
@@ -423,38 +716,68 @@ def main_path(tmp, dev, n_frames=3):
           "fixed_mc_masks: two predictions of one image differ")
     check(rows_a.shape == (1, MAX_OUT, 21 + C) and np.isfinite(rows_a).all(),
           "predict: bad rows")
-    return (runner, params, stats, frames, launches,
-            {"frames": n_frames, "detections": n_dets, "launches": launches,
+
+    # packed_host_input: run() from the loader's uint8 planes; then one frame's
+    # decoded rows against the image-fed rows, anchor by anchor, fixed masks
+    cfg_packed = make_config(tmp, "smoke", IMG, T, pattern, fixed_mc_masks=7,
+                             packed_host_input=True,
+                             out_path=os.path.join(tmp, "out", "smoke_packed"), **kw)
+    packed = InferenceRunner(cfg_packed, seed=0)
+    _, launches_packed, packed_summary = run_and_check(packed, n_frames)
+    check(launches_packed["fused_stem"] > 0, "the packed run launched no stem kernel")
+    planes = torch.from_numpy(pipeline.pack_planes_host(frames[0])[None]).to(dev)
+    keys = fixed.draw_keys()
+    rows_packed = packed._decoded_rows(params, stats, planes, keys)
+    rows_fed = fixed._decoded_rows(params, stats, torch.from_numpy(frames[0][None]).to(dev), keys)
+    packed_summary["rows_vs_image_fed"] = rows_agree_bf16("packed against image-fed",
+                                                          rows_packed, rows_fed)
+    del rows_packed, rows_fed, planes
+    return (runner, runner32, params, stats, frames, launches,
+            {"frames": n_frames, "bfloat16": bf16_summary, "float32": f32_summary,
+             "float32_exact_retry": wide_summary, "packed_host_input": packed_summary,
              "exact_retries": retried, "exact_pipeline_by_hand": not retried,
-             "wall_s_incl_load": wall, "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+             "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
 
 
 def timing(runner, params, stats, frames, dev, card):
+    """img/s of ``runner``'s main path (3 frames after a warm-up) and a stage
+    breakdown of one certified-path pass, in the runner's compute dtype."""
     imgs = [torch.from_numpy(f[None]).to(dev) for f in frames]
     spec = runner.spec
+    dtype = runner.model._dtype
 
     def one(img, keys):  # what predict() does, without the copies to the host
         return runner._select_certified(runner._decoded_rows(params, stats, img, keys))[2]
 
+    # start from an empty allocator cache, as a process that runs this one
+    # dtype would: blocks cached by the other dtype's run fit none of these sizes
+    torch.cuda.empty_cache()
     one(imgs[0], runner.draw_keys())  # warm-up
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    retries = sum(one(img, runner.draw_keys()) for img in imgs)
-    end.record()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(len(imgs) + 1)]
+    marks[0].record()
+    retries = 0
+    for img, mark in zip(imgs, marks[1:]):
+        retries += one(img, runner.draw_keys())
+        mark.record()
     torch.cuda.synchronize()
-    total_ms = start.elapsed_time(end)
+    total_ms = marks[0].elapsed_time(marks[-1])
+    each_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
 
-    # stage breakdown of one certified-path pass
     keys = runner.draw_keys()
     x = imgs[0].float() / 255.0
+    bb, bs = params["backbone"], stats["backbone"]
     stage = {}
     with torch.no_grad():
         stage["backbone_ms"] = event_ms(lambda: darknet.darknet53(
-            params["backbone"], stats["backbone"], x), 3)
+            bb, bs, x, compute_dtype=dtype), 3)
+        if dtype == torch.bfloat16:
+            stage["fused_chain_ms"] = event_ms(lambda: darknet._fused_early_stages(
+                bb, bs, x, dtype), 3)
         stage["forward_cf_ms"] = event_ms(lambda: yolov3.mc_forward_cf(
-            params, stats, x, spec=spec, T=T, rng=keys), 3)
-        outs = yolov3.mc_forward_cf(params, stats, x, spec=spec, T=T, rng=keys)
+            params, stats, x, spec=spec, T=T, rng=keys, compute_dtype=dtype), 3)
+        outs = yolov3.mc_forward_cf(params, stats, x, spec=spec, T=T, rng=keys,
+                                    compute_dtype=dtype)
 
         def decode_all():
             return [cuda_epistemic.fused_epistemic_decode_cf_batched(
@@ -466,18 +789,20 @@ def timing(runner, params, stats, frames, dev, card):
         for name, k in (("nms_select_top8192_ms", PRE_TOP_K), ("nms_select_exact_ms", 0)):
             stage[name] = event_ms(lambda: nms.nms_select_batch(
                 flat, 14, MAX_OUT, 0.5, pre_top_k=k, with_certificate=True), 3)
-        # the 15 hash-dropout sites alone, at their main-path shapes
+        # the 15 hash-dropout sites alone, at their main-path shapes and dtype
         site_shapes = [(T, h, w, c) for (h, w), cs in zip(
             SCALES, ((512, 1024, 512, 1024, 512), (256, 512, 256, 512, 256),
                      (128, 256, 128, 256, 128))) for c in cs]
 
         def masks():
             for shp in site_shapes:
-                common.dropout(torch.ones(shp, device=dev), 0.1, list(range(T)))
+                common.dropout(torch.ones(shp, device=dev, dtype=dtype), 0.1, list(range(T)))
 
         stage["dropout_15_sites_ms"] = event_ms(masks, 2)
-    return {"img_per_s": len(imgs) / (total_ms / 1e3), "ms_per_img": total_ms / len(imgs),
-            "images": len(imgs), "exact_retries": retries, "card": card, **stage}
+    return {"compute_dtype": runner.config.compute_dtype,
+            "img_per_s": len(imgs) / (total_ms / 1e3), "ms_per_img": total_ms / len(imgs),
+            "ms_each_img": each_ms, "images": len(imgs), "exact_retries": retries,
+            "card": card, **stage}
 
 
 def main():
@@ -500,14 +825,17 @@ def main():
     emit("build", seconds=time.time() - t0, kernels=sorted(libs), flags=_build.NVCC_FLAGS)
 
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)  # > 50 MB L2
-    kernels = [check_epistemic(dev, flush), check_nms(dev)]
+    kernels = [check_epistemic(dev, flush), check_nms(dev), check_stem(dev, flush),
+               check_res_block(dev, flush), check_downsample(dev, flush)]
     del flush
     emit("kernels", card=card, kernels=kernels)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        emit("small_ref", **small_reference(tmp, dev))
-        runner, params, stats, frames, launches, summary = main_path(tmp, dev)
+        for dtype in ("float32", "bfloat16"):
+            emit("small_ref", **small_reference(tmp, dev, dtype))
+        runner, runner32, params, stats, frames, launches, summary = main_path(tmp, dev)
         emit("main_path", card=card, **summary)
+        emit("timing", **timing(runner32, params, stats, frames, dev, card))
         emit("timing", **timing(runner, params, stats, frames, dev, card))
 
     for k in kernels:

@@ -45,6 +45,7 @@ def foreign_after_import():
 def test_every_module_is_listed():
     for needed in ("bayesian_yolov3_torch.infer.runner", "bayesian_yolov3_torch.ops.cuda_nms",
                    "bayesian_yolov3_torch.ops.cuda_epistemic", "bayesian_yolov3_torch.ops._build",
+                   "bayesian_yolov3_torch.ops.cuda_conv", "bayesian_yolov3_torch.models.darknet",
                    "bayesian_yolov3_torch.cli.inference_epistemic",
                    "bayesian_yolov3_torch.data.pipeline", "bayesian_yolov3_torch.convert"):
         assert needed in MODULES
@@ -56,10 +57,34 @@ def test_module_imports_without_jax(foreign_after_import, module):
 
 
 def test_kernel_sources_are_found_without_a_compiler():
-    """Importing builds nothing; the build names both kernels' sources."""
+    """Importing builds nothing; the build names every kernel's source."""
     from bayesian_yolov3_torch.ops import _build
 
-    assert _build.kernel_names() == ["epistemic_decode", "greedy_nms"]
+    assert _build.kernel_names() == ["epistemic_decode", "fused_downsample", "fused_res_block",
+                                     "fused_stem", "greedy_nms"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert _build.build_dir().startswith(os.path.join(REPO, "build"))
+
+
+def test_library_name_covers_the_shared_header(tmp_path, monkeypatch):
+    """A library is named by a hash of its source AND of every shared
+    ``csrc/*.cuh``: an edited header must not reuse a stale library."""
+    import shutil
+
+    from bayesian_yolov3_torch.ops import _build
+
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, src)
+    monkeypatch.setattr(_build, "CSRC_DIR", str(src))
+    before = {n: _build._target(n) for n in _build.kernel_names()}
+    assert before == {n: _build._target(n) for n in _build.kernel_names()}  # stable
+    with open(src / "conv_common.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build._target(n) for n in _build.kernel_names()}
+    assert all(after[n] != before[n] for n in before)
+    with open(src / "greedy_nms.cu", "a") as f:
+        f.write("// edited\n")
+    last = {n: _build._target(n) for n in _build.kernel_names()}
+    assert last["greedy_nms"] != after["greedy_nms"]
+    assert last["fused_stem"] == after["fused_stem"]

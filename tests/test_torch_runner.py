@@ -1,17 +1,21 @@
-"""The first slice of the PyTorch port as a whole, on the CPU: epistemic
-inference (bayesian, float32, fixed MC masks) against the JAX package's
-``InferenceRunner`` on the same numpy weights and image, and the port's
-``run()`` from a tfrecord and a checkpoint to ECP JSON.
+"""The PyTorch port's epistemic inference as a whole, on the CPU (bayesian,
+fixed MC masks) against the JAX package's ``InferenceRunner`` on the same
+numpy weights and image, and the port's ``run()`` from a tfrecord and a
+checkpoint to ECP JSON.
 
-Tolerance of the row comparison: 75 float32 convolutions, then sums over T,
-in another order in the two frameworks — ten times the kernel-level
+Tolerance of the float32 row comparison: 75 float32 convolutions, then sums
+over T, in another order in the two frameworks — ten times the kernel-level
 tolerances of test_torch_epistemic.py; ``valid`` and the picks themselves
-(layer / prior id columns) are exact."""
+(layer / prior id columns) are exact.  The bf16 comparison states its own.
+
+The full-width checkpoint (241 MB) is written once for the module and
+removed at teardown: a run leaves a few MB behind."""
 
 import glob
 import io
 import json
 import os
+import shutil
 import struct
 import zlib
 
@@ -83,23 +87,34 @@ def _write_records(path, images, names):
     return os.path.join(path, "d-*-of-*.tfrecord")
 
 
-def _save(cfg, params, stats, step):
-    trainable, frozen = partition_params(params, cfg.freeze_darknet53)
+CKPT_RUN, CKPT_STEP = "shared", 12
+
+
+@pytest.fixture(scope="module")
+def checkpoint(weights, tmp_path_factory):
+    """The module's one saved checkpoint (run ``CKPT_RUN``, step ``CKPT_STEP``)
+    of ``weights``; tests read it and never write beside it.  Yields its
+    ``checkpoint_path``."""
+    root = tmp_path_factory.mktemp("ckpt")
+    cfg = Config(**KW, run_id=CKPT_RUN, checkpoint_path=str(root))
+    tparams, tstats = tp.to_torch(*weights)
+    trainable, frozen = partition_params(tparams, cfg.freeze_darknet53)
     CheckpointStore(cfg.checkpoint_path, cfg.run_id).save(
-        step, {"params": trainable, "frozen": frozen, "stats": stats})
+        CKPT_STEP, {"params": trainable, "frozen": frozen, "stats": tstats})
+    yield str(root)
+    shutil.rmtree(root, ignore_errors=True)
 
 
-def test_run_writes_ecp_json_of_its_rows(weights, tmp_path):
+def test_run_writes_ecp_json_of_its_rows(weights, checkpoint, tmp_path):
     """tfrecord + checkpoint -> one JSON per frame, equal to
     bbox_to_ecp_format of predict()'s rows; batch 2 over 3 frames pads the
     last batch; a second run refuses to overwrite."""
     images = [tp.image_u8(seed=10 + i)[0] for i in range(3)]
     names = [f"frame_{i}.png" for i in range(3)]
-    cfg = Config(**dict(KW, batch_size=2), run_id="r", cpu_thread_cnt=2,
-                 checkpoint_path=str(tmp_path / "ckpt"), out_path=str(tmp_path / "out" / "epi"),
+    cfg = Config(**dict(KW, batch_size=2), run_id=CKPT_RUN, cpu_thread_cnt=2,
+                 checkpoint_path=checkpoint, out_path=str(tmp_path / "out" / "epi"),
                  data=DataConfig(file_pattern=_write_records(str(tmp_path / "data"), images, names)))
     tparams, tstats = tp.to_torch(*weights)
-    _save(cfg, tparams, tstats, step=12)
 
     runner = InferenceRunner(cfg, device="cpu")
     out_dir = runner.run()
@@ -152,15 +167,14 @@ def test_checkpoint_store_steps_and_wrong_variant(weights, tmp_path):
         CheckpointStore(str(tmp_path), "empty").restore_partial(like)
 
 
-def test_runner_loads_wrong_variant_loudly(weights, tmp_path):
+def test_runner_loads_wrong_variant_loudly(weights, checkpoint):
     tparams, tstats = tp.to_torch(*weights)
-    cfg = Config(**KW, run_id="w", checkpoint_path=str(tmp_path / "ckpt"))
-    _save(cfg, tparams, tstats, step=1)
-    cfg3 = Config(**KW, run_id="w", checkpoint_path=str(tmp_path / "ckpt"), cls_cnt=3)
+    cfg = Config(**KW, run_id=CKPT_RUN, checkpoint_path=checkpoint)
+    cfg3 = Config(**KW, run_id=CKPT_RUN, checkpoint_path=checkpoint, cls_cnt=3)
     with pytest.raises(ValueError, match="wrong variant or config"):
         InferenceRunner(cfg3, device="cpu").load_state()
     params, stats, step = InferenceRunner(cfg, device="cpu").load_state()
-    assert step == 1 and torch.equal(params["backbone"]["conv_07"]["w"],
+    assert step == CKPT_STEP and torch.equal(params["backbone"]["conv_07"]["w"],
                                      tparams["backbone"]["conv_07"]["w"])
     assert torch.equal(stats["trans2"]["var"], tstats["trans2"]["var"])
 
@@ -170,7 +184,7 @@ def test_runner_loads_wrong_variant_loudly(weights, tmp_path):
     (dict(inference_mode=False), NotImplementedError, "later slice"),
     (dict(mesh_shape={"mc": 2}), NotImplementedError, "multi-device"),
     (dict(quantize="int8"), NotImplementedError, "int8"),
-    (dict(packed_host_input=True), NotImplementedError, "fused early backbone"),
+    (dict(packed_host_input=True, full_img_size=(48, 96, 3)), AssertionError, "divisible by 32"),
     (dict(crop=True), ValueError, "full images"),
 ])
 def test_runner_refuses_what_this_slice_lacks(kw, exc, match):
@@ -187,21 +201,120 @@ def test_runner_needs_the_card_unless_told_otherwise():
             InferenceRunner(Config(**KW))
 
 
-def test_cli_runs_the_port(weights, tmp_path):
+def test_cli_runs_the_port(checkpoint, tmp_path):
     from bayesian_yolov3_torch.cli import inference_epistemic as cli
 
     images = [tp.image_u8(seed=20)[0]]
     pattern = _write_records(str(tmp_path / "data"), images, ["a.png"])
-    cfg = Config(**KW, run_id="c", checkpoint_path=str(tmp_path / "ckpt"))
-    _save(cfg, *tp.to_torch(*weights), step=3)
     argv = ["--device", "cpu", "--set", "compute_dtype=float32", "--set", "T=2",
-            "--set", "run_id=c", "--set", f"checkpoint_path={tmp_path / 'ckpt'}",
+            "--set", f"run_id={CKPT_RUN}", "--set", f"checkpoint_path={checkpoint}",
             "--set", "full_img_size=[64,96,3]", "--set", "cpu_thread_cnt=1",
             "--set", f"data.file_pattern={pattern}", "--set", "nms_max_boxes=20",
             "--set", f"out_path={tmp_path / 'out'}"]
     out_dir = cli.main(argv)
-    assert out_dir.endswith("out_3") and os.path.exists(os.path.join(out_dir, "a.json"))
+    assert out_dir.endswith(f"out_{CKPT_STEP}") and os.path.exists(os.path.join(out_dir, "a.json"))
     assert cli.DEFAULTS["T"] == 50 and cli.DEFAULTS["batch_size"] == 1
+
+
+def _read_dets(out_dir):
+    out = {}
+    for f in sorted(glob.glob(os.path.join(out_dir, "*.json"))):
+        with open(f) as fh:
+            out[os.path.basename(f)] = json.load(fh)["children"]
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_run_with_packed_host_input(checkpoint, tmp_path, monkeypatch, dtype):
+    """``packed_host_input``: run() feeds the loader's uint8 planes through
+    the fused early backbone (on the CPU: the kernels' plain versions).
+    Against the image-fed run of the same configuration with the fused
+    branch forced, under fixed masks: the two feeds differ only in how the
+    input pixel is rounded (u8 -> bf16, times bf16(1/255), against float/255
+    -> bf16), one bf16 step on some pixels, so the same boxes come out; box
+    coordinates within 2 px, scores within 0.02.  predict() keeps taking NHWC
+    images and refuses the packed configuration."""
+    from bayesian_yolov3_torch.models import darknet as tdark
+
+    images = [tp.image_u8(seed=30 + i)[0] for i in range(2)]
+    pattern = _write_records(str(tmp_path / "data"), images, ["a.png", "b.png"])
+    kw = dict(KW, compute_dtype=dtype, run_id=CKPT_RUN, checkpoint_path=checkpoint,
+              cpu_thread_cnt=1, data=DataConfig(file_pattern=pattern), nms_pre_top_k=0)
+    packed = InferenceRunner(Config(**kw, packed_host_input=True,
+                                    out_path=str(tmp_path / "packed")), device="cpu")
+    got = _read_dets(packed.run())
+    with pytest.raises(ValueError, match="NHWC uint8 images"):
+        packed.predict(None, None, images[0][None])
+
+    # image-fed, with the fused branch that a CUDA tensor would take by itself
+    monkeypatch.setattr(tdark, "_fused_early_auto", lambda x, compute_dtype: True)
+    want = _read_dets(InferenceRunner(
+        Config(**kw, out_path=str(tmp_path / "fed")), device="cpu").run())
+    assert set(got) == set(want) == {"a.json", "b.json"}
+    for name in got:
+        assert len(got[name]) > 10 and abs(len(got[name]) - len(want[name])) <= 2
+        matched = 0
+        for d in got[name]:
+            near = [w for w in want[name]
+                    if max(abs(d[k] - w[k]) for k in ("x0", "y0", "x1", "y1")) <= 2.0]
+            if near:
+                matched += 1
+                assert min(abs(d["score"] - w["score"]) for w in near) <= 0.02
+        assert matched >= 0.8 * len(got[name]), (name, matched, len(got[name]))
+
+
+def _match_rows(got, valid_g, want, valid_w):
+    """Pairs (row of got, row of want) of the same anchor's detection: same
+    layer and prior id, box corners within 1 % of the image."""
+    pairs = []
+    wrows = want[valid_w]
+    for r in got[valid_g]:
+        same = wrows[(wrows[:, 21] == r[21]) & (wrows[:, 22] == r[22])]
+        if len(same):
+            d = np.abs(same[:, :4] - r[:4]).max(axis=1)
+            if d.min() <= 0.01:
+                pairs.append((r, same[int(d.argmin())]))
+    return pairs
+
+
+def test_predict_bf16_matches_jax_runner(weights):
+    """The whole pipeline at ``compute_dtype="bfloat16"`` on the CPU, both
+    runners, same weights, image and fixed masks.
+
+    bf16 convolutions perturb each sample's logits, in other places in the two
+    frameworks, and near-tied scores may swap in NMS: pick ORDER is not
+    compared (test_torch_nms.py holds NMS exactly on equal rows).  Detections
+    are paired by anchor (layer id, prior id, nearest box) and held to: box
+    corners within 0.01 of the unit image; objectness and class scores within
+    0.05; epistemic and aleatoric variance columns within rtol 0.35 — the
+    jitter bound of tests/test_accuracy_parity.py for bf16 against float32 —
+    plus 1e-6 absolute.  At least 60 % of either side's detections pair up."""
+    # row layout: 0-3 corners, 4-7 epistemic var, 8-11 aleatoric var, 12 det of
+    # the epistemic covariance, 13 total aleatoric var, 14-16 objectness, 17-20
+    # classes, 21 layer id, 22 prior id
+    params_np, stats_np = weights
+    img = tp.image_u8(seed=4)
+    kw = dict(KW, compute_dtype="bfloat16", nms_pre_top_k=0)
+    jr = JRunner(JConfig(**kw))
+    want_rows, want_valid = (np.asarray(a) for a in jr.predict(
+        tp.to_jax(params_np), tp.to_jax(stats_np), img, jr.rng))
+    tr = InferenceRunner(Config(**kw), device="cpu")
+    got_rows, got_valid = tr.predict(*tp.to_torch(params_np, stats_np), img)
+    assert got_rows.shape == want_rows.shape == (1, 50, 23)
+    assert np.isfinite(got_rows).all()
+    n_got, n_want = int(got_valid.sum()), int(want_valid.sum())
+    assert n_got > 10 and abs(n_got - n_want) <= 0.2 * n_want
+    pairs = _match_rows(got_rows[0], got_valid[0], want_rows[0], want_valid[0])
+    assert len(pairs) >= 0.6 * max(n_got, n_want), (len(pairs), n_got, n_want)
+    g, w = (np.stack(x) for x in zip(*pairs))
+    np.testing.assert_allclose(g[:, :4], w[:, :4], atol=0.01, rtol=0)
+    # objectness mean / MI / entropy, class means / MI / entropy
+    np.testing.assert_allclose(g[:, 14:21], w[:, 14:21], atol=0.05, rtol=0)
+    for cols in (slice(4, 12), slice(13, 14)):  # epistemic, aleatoric, total aleatoric
+        np.testing.assert_allclose(g[:, cols], w[:, cols], rtol=0.35, atol=1e-6)
+    # column 12, the determinant of a 4x4 covariance estimated from T=4
+    # samples, has rank <= 3: it is 0 up to rounding noise on both sides
+    np.testing.assert_allclose(g[:, 12], w[:, 12], rtol=0, atol=1e-5)
 
 
 # ---- PNG codec -------------------------------------------------------------
@@ -299,5 +412,7 @@ def test_tfrecord_pure_python_crc_and_loader(rng, tmp_path, monkeypatch):
     assert [b["image"].shape[0] for b in batches] == [2, 1]
     assert [n for b in batches for n in b["filename"]] == [b"a.png", b"b.png", b"c.png"]
     np.testing.assert_array_equal(batches[1]["image"][0], images[2])
-    with pytest.raises(NotImplementedError, match="fused early backbone"):
-        pipeline.TestLoader(cfg, pack_planes=True)
+    packed = list(pipeline.TestLoader(cfg, batch_size=2, pack_planes=True).batches())
+    assert packed[0]["packed"].shape == (2, 16, (4 + 16) * 256) and packed[0]["packed"].dtype == np.uint8
+    np.testing.assert_array_equal(packed[1]["packed"][0], pipeline.pack_planes_host(images[2]))
+    np.testing.assert_array_equal(packed[1]["image"][0], images[2])
