@@ -4,9 +4,8 @@ The reference configures every entry script through a hand-edited Python
 dict.  The same keys are dataclass fields here, with the same defaults as
 the JAX package's ``Config`` so a config file carries over between the two
 packages unchanged.  Keys that belong to parts of the system this package
-does not cover yet (``mesh_shape``, ``quantize``, ``packed_host_input``)
-are kept on the surface; the runner raises on them instead of ignoring
-them.
+does not cover yet (``mesh_shape``, ``quantize``) are kept on the surface;
+the runner raises on them instead of ignoring them.
 """
 
 from __future__ import annotations

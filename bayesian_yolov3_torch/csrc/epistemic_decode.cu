@@ -21,20 +21,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "decode_common.cuh"
+
 #define EPI_BLOCK 128
 #define EPI_MAX_C 8
-
-__device__ __forceinline__ float xlogx(float p) {
-  return p > 0.0f ? p * logf(p) : 0.0f;  // exactly 0 at p <= 0
-}
-
-__device__ __forceinline__ float logistic_entropy(float p) {
-  return -(xlogx(p) + xlogx(1.0f - p));
-}
-
-__device__ __forceinline__ float sigmoidf(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
 
 __device__ __forceinline__ float det3(float a00, float a01, float a02,
                                       float a10, float a11, float a12,

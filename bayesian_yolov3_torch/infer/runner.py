@@ -1,15 +1,24 @@
 """Inference runner: tfrecords -> detections -> ECP JSON files.
 
-This package covers the single-device EPISTEMIC path (bayesian variant,
-``inference_mode``) in ``compute_dtype`` "bfloat16" (the default: convs 0-25
-of the backbone through the fused conv kernels of ``ops.cuda_conv``, the
-rest in bf16 on the tensor cores) and "float32": T-sample channels-first MC
-forward (``models.yolov3.mc_forward_cf``), the epistemic decode kernel
-(``ops.cuda_epistemic``), certified NMS over the flattened 21+C rows
-(``ops.nms`` with the greedy-NMS kernel), and the exact (pre_top_k=0)
-retry of batches whose certificate fails — on the decoded rows already
-computed; the JAX runner re-runs its whole jitted program, with the same
-result.  JSON writing overlaps the next batch on a worker thread.
+Two single-device branches, in ``compute_dtype`` "bfloat16" (the default:
+convs 0-25 of the backbone through the fused conv kernels of
+``ops.cuda_conv``, the rest in bf16 on the tensor cores) and "float32":
+
+* EPISTEMIC (bayesian variant, ``inference_mode``): T-sample channels-first
+  MC forward (``models.yolov3.mc_forward_cf``), the epistemic decode kernel
+  (``ops.cuda_epistemic``), rows 21+C wide.
+* BATCHED standard / aleatoric (every other configuration, the bayesian
+  variant with ``inference_mode=False`` included): one channels-first
+  forward of the image batch (``models.yolov3.forward_cf``; the bayesian
+  variant keeps its dropout unless ``standard_test_dropout``), the box
+  decode kernel (``ops.cuda_decode``), rows 7+C or 14+C wide.
+
+Both end in certified NMS over the flattened rows (``ops.nms`` with the
+greedy-NMS kernel, one block per image) and the exact (pre_top_k=0) retry
+of batches whose certificate fails — on the decoded rows already computed;
+the JAX runner re-runs its whole jitted program, with the same result.
+JSON writing overlaps the next batch on a worker thread; the final partial
+batch is padded with copies of its last image.
 
 The runner computes on ``device`` ("cuda" unless the caller passes another
 one) and raises when that device is not there; it never moves to the CPU
@@ -18,11 +27,10 @@ kernels; on CPU tensors (the tests) through their plain versions.
 
 ``packed_host_input``: ``run()`` feeds the loader's host-packed
 space-to-depth uint8 planes (``data.pipeline.pack_planes_host``) instead of
-NHWC images; ``predict()`` keeps taking NHWC images and refuses that
-configuration, as the JAX runner does.
+NHWC images, in both branches; ``predict()`` keeps taking NHWC images and
+refuses that configuration, as the JAX runner does.
 
-Batched standard/aleatoric inference, the ``mesh_shape`` axes and
-``quantize`` are not ported yet and raise here.
+The ``mesh_shape`` axes and ``quantize`` are not ported yet and raise here.
 """
 
 from __future__ import annotations
@@ -42,8 +50,9 @@ from ..convert import tree_to
 from ..core.blueprint import Variant
 from ..core.priors import priors_as_array
 from ..data import pipeline
-from ..models.yolov3 import YoloV3, _key_table, mc_forward_cf
+from ..models.yolov3 import YoloV3, _batch_keys, _key_table, forward_cf, mc_forward_cf
 from ..ops import nms
+from ..ops.cuda_decode import fused_box_decode_all_scales
 from ..ops.cuda_epistemic import fused_epistemic_decode_cf_batched
 from ..train.checkpoints import CheckpointStore
 from ..train.loop import merge_params, partition_params
@@ -66,22 +75,17 @@ class InferenceRunner:
         self.model = YoloV3.from_config(config)
         self.spec = self.model.spec
         self.epistemic = self.spec.variant == Variant.BAYESIAN and config.inference_mode
-        if not self.epistemic:
-            raise NotImplementedError(
-                "batched standard/aleatoric inference (the per-sample decode "
-                "kernel) is a later slice of this package; this one runs "
-                "model='bayesian' with inference_mode=True"
-            )
         if config.mesh_shape:
             raise NotImplementedError("mesh_shape belongs to the multi-device slice")
         if config.quantize is not None:
             raise NotImplementedError("quantize belongs to the int8 slice")
         # run() then feeds host-packed planes to the fused early backbone
         self.packed = bool(config.packed_host_input)
-        # the MC-dropout keys of every batch come from this CPU generator
+        # the dropout keys of every batch come from this CPU generator
         self.rng = torch.Generator(device="cpu")
         self.rng.manual_seed(seed)
         self.retried = 0  # batches the last run() re-ran with exact NMS
+        self.last_run = {}  # images and seconds of the last run()'s loop
         self._priors = {
             stride: torch.from_numpy(p).to(self.device)
             for stride, p in priors_as_array(self.model.priors).items()
@@ -107,23 +111,36 @@ class InferenceRunner:
 
     def device_batch_size(self) -> int:
         """Largest image batch one pipeline call takes: the image batch
-        folds onto the anchor axis of the epistemic decode."""
+        folds onto the anchor axis of the epistemic decode, onto the batch
+        axis of the batched forward."""
         return self.config.batch_size
 
-    def draw_keys(self) -> np.ndarray:
-        """(T, 15) uint32 dropout keys for one batch: the constant table of
-        ``fixed_mc_masks``, else fresh keys from the runner's generator."""
-        return _key_table(self.rng, self.config.fixed_mc_masks, self.config.T)
+    def draw_keys(self, gen: Optional[torch.Generator] = None) -> Optional[np.ndarray]:
+        """uint32 dropout keys for one batch, drawn from ``gen`` (default:
+        the runner's generator): epistemic — a (T, 15) table, the constant
+        one of ``fixed_mc_masks`` if set; batched — a (1, 15) table where
+        the bayesian variant's dropout is active, else None."""
+        gen = self.rng if gen is None else gen
+        if self.epistemic:
+            return _key_table(gen, self.config.fixed_mc_masks, self.config.T)
+        return _batch_keys(self.spec, gen, self.config.standard_test_dropout)
 
     @torch.no_grad()
     def _decoded_rows(self, params, stats, images, keys):
-        """uint8 NHWC batch (tensor on the runner's device) + (T, 15) key
-        table -> the decoded epistemic rows of every anchor,
-        (nb, N_total, 21+C): MC forward, then one decode launch per scale.
-        With ``packed_host_input`` ``images`` is the host-packed uint8 planes
+        """uint8 NHWC batch (tensor on the runner's device) + key table (see
+        ``draw_keys``) -> the decoded rows of every anchor, (nb, N_total,
+        width): forward, then one decode launch per scale.  With
+        ``packed_host_input`` ``images`` is the host-packed uint8 planes
         (nb, 16, L); the scaling then happens inside the backbone."""
         packed_hw = tuple(self.config.full_img_size[:2]) if self.packed else None
         imgs = images if self.packed else images.float() / 255.0
+        if not self.epistemic:
+            outs = forward_cf(
+                params, stats, imgs, spec=self.spec, rng=keys,
+                standard_test_dropout=self.config.standard_test_dropout,
+                compute_dtype=self.model._dtype, packed_hw=packed_hw,
+            )
+            return fused_box_decode_all_scales(outs, self._priors, spec=self.spec)
         nb = imgs.shape[0]
         outs = mc_forward_cf(
             params, stats, imgs, spec=self.spec, T=self.config.T, rng=keys,
@@ -146,7 +163,7 @@ class InferenceRunner:
         restriction (ops.nms); ``pre_top_k=0`` is exact by construction."""
         cfg = self.config
         rows, valid, _, cert = nms.nms_select_batch(
-            flat, self.spec.obj_idx(epistemic=True), cfg.nms_max_boxes,
+            flat, self.spec.obj_idx(self.epistemic), cfg.nms_max_boxes,
             cfg.nms_iou_thresh, pre_top_k=pre_top_k, with_certificate=True,
         )
         return rows, valid, cert
@@ -174,8 +191,8 @@ class InferenceRunner:
 
     def predict(self, params, stats, images, keys=None):
         """uint8 NHWC image batch (numpy) -> (rows, valid) numpy detections,
-        with the exact-NMS certificate retry applied.  ``keys``: a (T, 15)
-        key table; None draws one (see ``draw_keys``)."""
+        with the exact-NMS certificate retry applied.  ``keys``: a key table
+        as ``draw_keys`` gives; None draws one."""
         if self.packed:
             raise ValueError("predict() takes NHWC uint8 images; packed_host_input "
                              "is a run()-loop feed")
@@ -241,6 +258,7 @@ class InferenceRunner:
         if self.retried:
             log.info("%d batches re-run with exact NMS (certificate).", self.retried)
         elapsed = time.time() - start
+        self.last_run = {"images": n, "seconds": elapsed}
         log.info("Processed %d images in %.1fs (%.2f img/s).", n, elapsed,
                  n / max(elapsed, 1e-9))
         return out_dir

@@ -10,6 +10,7 @@ from .yolov3 import (  # noqa: F401
     YoloV3,
     init_yolov3,
     forward,
+    forward_cf,
     mc_forward,
     mc_forward_cf,
 )

@@ -10,7 +10,9 @@ MC-dropout inference runs the deterministic backbone once; the T samples
 of the dropout-bearing head section are stacked on the batch axis
 (sample-major: row ``t*NB + n``), where the JAX package ``vmap``s over T.
 Each of the 15 dropout sites takes one uint32 hash key per sample, so a
-key table is (T, 15).
+key table is (T, 15).  Batched standard/aleatoric inference (``forward``,
+``forward_cf``) runs the heads once; the bayesian variant's dropout then
+takes a (1, 15) table.
 """
 
 from __future__ import annotations
@@ -174,6 +176,7 @@ def forward(
     standard_test_dropout: bool = False,
     compute_dtype=torch.float32,
     fused_early=None,
+    packed_hw=None,
 ):
     """Single inference forward pass.  Returns (raw1, raw2, raw3): raw_i is
     the f32 detection-conv output at scale i, (N, H/stride, W/stride,
@@ -181,17 +184,60 @@ def forward(
 
     The bayesian variant draws one set of dropout masks from ``rng`` (a
     CPU ``torch.Generator`` or a (1, 15) key table) unless
-    ``standard_test_dropout`` switches dropout off.
+    ``standard_test_dropout`` switches dropout off.  ``packed_hw=(H, W)``:
+    ``imgs`` is host-packed uint8 planes (see ``darknet.darknet53``).
     """
     out32, skip16, skip8, _ = darknet.darknet53(
         params["backbone"], stats["backbone"], imgs,
-        compute_dtype=compute_dtype, fused_early=fused_early,
+        compute_dtype=compute_dtype, fused_early=fused_early, packed_hw=packed_hw,
     )
-    keys = None
-    if spec.mc_dropout and not standard_test_dropout:
-        keys = _key_table(rng, None, 1)
     return _heads(params, stats, out32, skip16, skip8,
-                  site_keys=keys, compute_dtype=compute_dtype)
+                  site_keys=_batch_keys(spec, rng, standard_test_dropout),
+                  compute_dtype=compute_dtype)
+
+
+def _batch_keys(spec: VariantSpec, rng, standard_test_dropout: bool):
+    """The (1, 15) key table of a batched pass with dropout active (the
+    bayesian variant without ``standard_test_dropout``), else None."""
+    if spec.mc_dropout and not standard_test_dropout:
+        return _key_table(rng, None, 1)
+    return None
+
+
+def forward_cf(
+    params: Dict,
+    stats: Dict,
+    imgs: torch.Tensor,
+    *,
+    spec: VariantSpec,
+    rng=None,
+    standard_test_dropout: bool = False,
+    compute_dtype=torch.float32,
+    fused_early=None,
+    packed_hw=None,
+):
+    """Batched inference forward emitting CHANNELS-FIRST raw heads.
+
+    Standard/aleatoric counterpart of ``mc_forward_cf``: the backbone runs
+    once, the heads once (dropout as in ``forward``), and the 1x1 detection
+    convs run as channels-first matrix products over the batch, yielding
+    (ch, NB, h*w) f32 per scale — the input layout of the box decode kernel
+    (ops.cuda_decode), with no relayout in between.
+
+    Returns [(raw_cf (ch, NB, h*w), (h, w)), ...].
+    """
+    out32, skip16, skip8, _ = darknet.darknet53(
+        params["backbone"], stats["backbone"], imgs,
+        compute_dtype=compute_dtype, fused_early=fused_early, packed_hw=packed_hw,
+    )
+    feats = _heads(params, stats, out32, skip16, skip8,
+                   site_keys=_batch_keys(spec, rng, standard_test_dropout),
+                   compute_dtype=compute_dtype, return_features=True)
+    out = []
+    for head, f in enumerate(feats, start=1):
+        raw_cf = detection_conv_cf(params[f"det{head}"], f, compute_dtype=compute_dtype)
+        out.append((raw_cf, tuple(f.shape[1:3])))
+    return out
 
 
 def mc_forward(
@@ -307,10 +353,11 @@ class YoloV3:
     def init(self, gen: torch.Generator, device="cpu"):
         return init_yolov3(gen, self.spec, device)
 
-    def forward(self, params, stats, imgs, *, rng=None, standard_test_dropout=False):
+    def forward(self, params, stats, imgs, *, rng=None, standard_test_dropout=False,
+                packed_hw=None):
         return forward(params, stats, imgs, spec=self.spec, rng=rng,
                        standard_test_dropout=standard_test_dropout,
-                       compute_dtype=self._dtype)
+                       compute_dtype=self._dtype, packed_hw=packed_hw)
 
     def mc_forward(self, params, stats, img, *, T, rng=None, fixed_masks=None):
         return mc_forward(params, stats, img, spec=self.spec, T=T, rng=rng,

@@ -47,6 +47,10 @@ def test_every_module_is_listed():
                    "bayesian_yolov3_torch.ops.cuda_epistemic", "bayesian_yolov3_torch.ops._build",
                    "bayesian_yolov3_torch.ops.cuda_conv", "bayesian_yolov3_torch.models.darknet",
                    "bayesian_yolov3_torch.cli.inference_epistemic",
+                   "bayesian_yolov3_torch.ops.cuda_decode", "bayesian_yolov3_torch.infer.detect",
+                   "bayesian_yolov3_torch.cli.inference_standard_yolov3",
+                   "bayesian_yolov3_torch.cli.inference_aleatoric",
+                   "bayesian_yolov3_torch.cli.detect",
                    "bayesian_yolov3_torch.data.pipeline", "bayesian_yolov3_torch.convert"):
         assert needed in MODULES
 
@@ -60,8 +64,8 @@ def test_kernel_sources_are_found_without_a_compiler():
     """Importing builds nothing; the build names every kernel's source."""
     from bayesian_yolov3_torch.ops import _build
 
-    assert _build.kernel_names() == ["epistemic_decode", "fused_downsample", "fused_res_block",
-                                     "fused_stem", "greedy_nms"]
+    assert _build.kernel_names() == ["box_decode", "epistemic_decode", "fused_downsample",
+                                     "fused_res_block", "fused_stem", "greedy_nms"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert _build.build_dir().startswith(os.path.join(REPO, "build"))

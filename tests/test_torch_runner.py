@@ -180,8 +180,6 @@ def test_runner_loads_wrong_variant_loudly(weights, checkpoint):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(model="aleatoric", inference_mode=False), NotImplementedError, "later slice"),
-    (dict(inference_mode=False), NotImplementedError, "later slice"),
     (dict(mesh_shape={"mc": 2}), NotImplementedError, "multi-device"),
     (dict(quantize="int8"), NotImplementedError, "int8"),
     (dict(packed_host_input=True, full_img_size=(48, 96, 3)), AssertionError, "divisible by 32"),

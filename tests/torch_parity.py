@@ -2,6 +2,7 @@
 weights in the JAX package's pytree layout, handed to both packages."""
 
 import numpy as np
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -10,6 +11,12 @@ from bayesian_yolov3_tpu.core.blueprint import Variant, VariantSpec
 from bayesian_yolov3_tpu.models.yolov3 import init_yolov3
 
 from bayesian_yolov3_torch import convert
+
+# The tier-1 run puts six pytest workers on the machine's cores, and every
+# worker imports this module; torch's default of one intra-op thread per core
+# then oversubscribes the cores, and its spinning threads slow the port's CPU
+# tests several-fold.  Two threads per worker.
+torch.set_num_threads(min(2, torch.get_num_threads()))
 
 SPEC = VariantSpec(Variant.BAYESIAN, 2)
 IMG = (64, 96, 3)
