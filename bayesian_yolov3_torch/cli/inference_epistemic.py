@@ -12,6 +12,15 @@ Runs on the CUDA device unless ``--device cpu`` is given.  The default
 kernels) and the tensor cores; ``--set compute_dtype=float32`` runs every
 convolution in true float32; ``--set packed_host_input=true`` feeds
 host-packed uint8 planes instead of NHWC images.
+
+The T samples of each image split over N cards, one process per card:
+
+    torchrun --nproc_per_node N -m bayesian_yolov3_torch.cli.inference_epistemic \
+        --set mesh_shape='{"mc": N}' --set run_id=... --set data.file_pattern=...
+
+(T a multiple of N; each rank computes on ``cuda:{LOCAL_RANK}`` over NCCL
+unless ``--device`` names another device; every rank reads every frame;
+rank 0 logs progress and writes the JSON.)
 """
 
 import logging

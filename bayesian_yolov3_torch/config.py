@@ -4,8 +4,9 @@ The reference configures every entry script through a hand-edited Python
 dict.  The same keys are dataclass fields here, with the same defaults as
 the JAX package's ``Config`` so a config file carries over between the two
 packages unchanged.  Keys that belong to parts of the system this package
-does not cover yet (``mesh_shape``, ``quantize``) are kept on the surface;
-the runner raises on them instead of ignoring them.
+does not cover yet (``quantize``, the ``dp`` and ``sp`` axes of
+``mesh_shape``) are kept on the surface; the runner raises on them instead
+of ignoring them.
 """
 
 from __future__ import annotations
@@ -89,8 +90,10 @@ class Config:
     # convolution and matmul in bf16 with float32 accumulation.  "float32"
     # runs every convolution in true float32 (TF32 off).
     compute_dtype: str = "bfloat16"
-    # hand-written decode / NMS kernels on CUDA tensors (key name shared
-    # with the JAX package's config files)
+    # key name shared with the JAX package's config files.  The hand-written
+    # kernels run on CUDA tensors either way; over mesh_shape={'mc': N} True
+    # takes the fused pipeline (partial moments -> all-reduce -> finalize),
+    # False the all-gather fallback (parallel/epistemic.py)
     use_pallas: bool = True
     packed_host_input: bool = False
     # deterministic epistemic inference: reuse the SAME T dropout-mask sets
@@ -101,8 +104,13 @@ class Config:
     quantize: Optional[str] = None
     quant_calib_images: int = 2
     quant_calib_percentile: Optional[float] = None
+    # {'mc': N}: the T MC samples of epistemic inference split over the N
+    # ranks of a process group (parallel/); 'dp' and 'sp' are not ported yet
     mesh_shape: Dict[str, int] = dataclasses.field(default_factory=dict)
     max_boxes_per_img: int = 60
+    # a tcp rendezvous (host:port) for the process group of a multi-process
+    # run, with its world size and this process's rank; empty: torchrun's
+    # environment, if any (parallel/mesh.py:maybe_initialize_from_config)
     coordinator_address: str = ""
     num_processes: int = 1
     process_id: int = 0

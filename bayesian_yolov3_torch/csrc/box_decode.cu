@@ -20,8 +20,9 @@
 // stages its rows in shared memory (odd row pitch, no bank conflicts) and
 // writes the run back with consecutive threads on consecutive addresses.
 // No tiling rule on h*w: the ragged last block is masked.
-// The cell offsets are divided by w and h (__fdiv_rn), as the plain version
-// does; products use __fmul_rn so no FMA contraction changes a rounding.
+// The corner decode (decode_corners) and the softmax come from
+// decode_common.cuh, shared with the epistemic kernels; the variance product
+// uses __fmul_rn so no FMA contraction changes a rounding.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -55,34 +56,14 @@ box_decode_kernel(const float* __restrict__ x, const float* __restrict__ pri,
     const float* xp = x + (size_t)b * CHPP * ch_stride + (size_t)n * hw + cell;
     float* r = tile + threadIdx.x * PITCH;
 
-    const float ph = pri[2 * b + 0];
-    const float pw = pri[2 * b + 1];
-    const float xoff = (float)(cell % w);
-    const float yoff = (float)(cell / w);
-    const float bx = __fdiv_rn(xoff + sigmoidf(xp[0]), (float)w);
-    const float by = __fdiv_rn(yoff + sigmoidf(xp[ch_stride]), (float)h);
-    const float w2 = __fmul_rn(__fmul_rn(expf(xp[2 * ch_stride]), pw), 0.5f);
-    const float h2 = __fmul_rn(__fmul_rn(expf(xp[3 * ch_stride]), ph), 0.5f);
-    r[0] = by - h2;
-    r[1] = bx - w2;
-    r[2] = by + h2;
-    r[3] = bx + w2;
+    decode_corners(xp[0], xp[ch_stride], xp[2 * ch_stride], xp[3 * ch_stride], cell, h, w,
+                   pri[2 * b + 0], pri[2 * b + 1], r);
 
     const float obj = sigmoidf(xp[OBJ * ch_stride]);
     float lg[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) lg[c] = xp[(CLS + c) * ch_stride];
-    float cmax = lg[0];
-#pragma unroll
-    for (int c = 1; c < C; ++c) cmax = fmaxf(cmax, lg[c]);
-    float denom = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      lg[c] = expf(lg[c] - cmax);
-      denom += lg[c];
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c) lg[c] = lg[c] / denom;  // class probabilities
+    softmax_inplace<C>(lg);  // class probabilities
 
     int k = 4;
     if constexpr (ALEATORIC) {

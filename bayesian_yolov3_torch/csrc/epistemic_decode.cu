@@ -12,6 +12,9 @@
 // image against a few hundred flops per anchor-sample.
 // Design: one thread per (prior, anchor).  For a fixed channel and sample,
 // neighbouring threads read neighbouring anchors, so every load is coalesced.
+// The sums and the row come from add_sample_moments / finalize_row of
+// decode_common.cuh, which the split form (epistemic_moments.cu, then
+// epistemic_finalize.cu) uses too.
 // The 21+C output values of a thread are strided by the row width in memory,
 // so the block stages its rows in shared memory and writes them back as one
 // contiguous run.  No tiling rule on total: the ragged edge is masked.
@@ -25,30 +28,6 @@
 
 #define EPI_BLOCK 128
 #define EPI_MAX_C 8
-
-__device__ __forceinline__ float det3(float a00, float a01, float a02,
-                                      float a10, float a11, float a12,
-                                      float a20, float a21, float a22) {
-  return a00 * (a11 * a22 - a12 * a21) - a01 * (a10 * a22 - a12 * a20) +
-         a02 * (a10 * a21 - a11 * a20);
-}
-
-// cofactor expansion along row 0 of a symmetric 4x4, m[i][j]
-__device__ __forceinline__ float det4(const float m[4][4]) {
-  float t0 = m[0][0] * det3(m[1][1], m[1][2], m[1][3],
-                            m[2][1], m[2][2], m[2][3],
-                            m[3][1], m[3][2], m[3][3]);
-  float t1 = m[0][1] * det3(m[1][0], m[1][2], m[1][3],
-                            m[2][0], m[2][2], m[2][3],
-                            m[3][0], m[3][2], m[3][3]);
-  float t2 = m[0][2] * det3(m[1][0], m[1][1], m[1][3],
-                            m[2][0], m[2][1], m[2][3],
-                            m[3][0], m[3][1], m[3][3]);
-  float t3 = m[0][3] * det3(m[1][0], m[1][1], m[1][2],
-                            m[2][0], m[2][1], m[2][2],
-                            m[3][0], m[3][1], m[3][2]);
-  return ((t0 - t1) + t2) - t3;
-}
 
 template <int C>
 __global__ void __launch_bounds__(EPI_BLOCK)
@@ -70,124 +49,12 @@ epistemic_decode_kernel(const float* __restrict__ x,
     // channel ch, sample t of this prior: xb[(ch*T + t)*total + a]
     const float* xb = x + (size_t)b * CHPP * T * total + a;
     const size_t ch_stride = (size_t)T * total;
-
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-    float m2[4][4];
+    float s[W];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) m2[i][j] = 0.f;
-    float ale[4] = {0.f, 0.f, 0.f, 0.f};
-    float obj_sum = 0.f, obj_ent = 0.f, cls_ent = 0.f;
-    float cls_sum[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) cls_sum[c] = 0.f;
-
-    for (int t = 0; t < T; ++t) {
-      const float* xt = xb + (size_t)t * total;
-      float l[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) l[j] = xt[j * ch_stride];
-      float lv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) lv[j] = xt[(4 + j) * ch_stride];
-      const float lo = xt[8 * ch_stride];
-      float lg[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) lg[c] = xt[(10 + c) * ch_stride];
-
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i] += l[i];
-#pragma unroll
-        for (int j = i; j < 4; ++j) m2[i][j] += l[i] * l[j];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ale[j] += expf(lv[j]);
-
-      const float o = sigmoidf(lo);
-      obj_sum += o;
-      obj_ent += logistic_entropy(o);
-
-      float cmax = lg[0];
-#pragma unroll
-      for (int c = 1; c < C; ++c) cmax = fmaxf(cmax, lg[c]);
-      float e[C];
-      float denom = 0.f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        e[c] = expf(lg[c] - cmax);
-        denom += e[c];
-      }
-      float pe = 0.f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float p = e[c] / denom;
-        cls_sum[c] += p;
-        pe -= xlogx(p);
-      }
-      cls_ent += pe;
-    }
-
-    const float inv_T = 1.0f / (float)T;
-    float ev[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) ev[i] = s[i] * inv_T;
-    float cov[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = i; j < 4; ++j) {
-        const float cij = m2[i][j] * inv_T - ev[i] * ev[j];
-        cov[i][j] = cij;
-        cov[j][i] = cij;
-      }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) ale[j] *= inv_T;
-
-    const float obj_mean = obj_sum * inv_T;
-    const float obj_post_ent = obj_ent * inv_T;
-    const float obj_pred_ent = logistic_entropy(obj_mean);
-
-    float cls_pred_ent = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      cls_sum[c] *= inv_T;
-      cls_pred_ent -= xlogx(cls_sum[c]);
-    }
-    const float cls_post_ent = cls_ent * inv_T;
-
-    // corner decode on the mean localization
-    const long long cell = a % hw;
-    const float xoff = (float)(cell % w);
-    const float yoff = (float)(cell / w);
-    const float ph = pri[2 * b + 0];
-    const float pw = pri[2 * b + 1];
-    const float bx = (xoff + sigmoidf(ev[0])) * (1.0f / (float)w);
-    const float by = (yoff + sigmoidf(ev[1])) * (1.0f / (float)h);
-    const float w2 = expf(ev[2]) * pw * 0.5f;
-    const float h2 = expf(ev[3]) * ph * 0.5f;
-
-    float* r = tile + threadIdx.x * W;
-    r[0] = by - h2;
-    r[1] = bx - w2;
-    r[2] = by + h2;
-    r[3] = bx + w2;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) r[4 + j] = cov[j][j];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) r[8 + j] = ale[j];
-    r[12] = det4(cov);
-    r[13] = ((ale[0] + ale[1]) + ale[2]) + ale[3];
-    r[14] = obj_mean;
-    r[15] = obj_pred_ent - obj_post_ent;
-    r[16] = obj_pred_ent;
-#pragma unroll
-    for (int c = 0; c < C; ++c) r[17 + c] = cls_sum[c];
-    r[17 + C] = cls_pred_ent - cls_post_ent;
-    r[18 + C] = cls_pred_ent;
-    r[19 + C] = (float)layer_id;
-    r[20 + C] = (float)b;
+    for (int k = 0; k < W; ++k) s[k] = 0.f;
+    for (int t = 0; t < T; ++t) add_sample_moments<C>(xb + (size_t)t * total, ch_stride, s);
+    finalize_row<C>(s, T, (int)(a % hw), h, w, pri[2 * b + 0], pri[2 * b + 1],
+                    layer_id, b, tile + threadIdx.x * W);
   }
   __syncthreads();
 

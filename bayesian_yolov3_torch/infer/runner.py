@@ -30,7 +30,15 @@ space-to-depth uint8 planes (``data.pipeline.pack_planes_host``) instead of
 NHWC images, in both branches; ``predict()`` keeps taking NHWC images and
 refuses that configuration, as the JAX runner does.
 
-The ``mesh_shape`` axes and ``quantize`` are not ported yet and raise here.
+``mesh_shape={'mc': N}`` (N > 1, epistemic, batch 1) splits the T samples
+over the N ranks of an initialised process group (``parallel/``), one
+runner per rank, every rank reading the same frames and drawing the same
+keys: ``use_pallas=True`` takes the fused pipeline (partial moments,
+all-reduce, finalize; exact NMS, so no retry), ``use_pallas=False`` the
+all-gather fallback (the one-shot decode of the gathered samples, certified
+NMS and the exact retry).  Only rank 0 writes JSON.  ``{'mc': 1}`` is the
+single-device path.  The ``dp`` and ``sp`` axes and ``quantize`` are not
+ported yet and raise here.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from ..models.yolov3 import YoloV3, _batch_keys, _key_table, forward_cf, mc_forw
 from ..ops import nms
 from ..ops.cuda_decode import fused_box_decode_all_scales
 from ..ops.cuda_epistemic import fused_epistemic_decode_cf_batched
+from ..parallel import make_group, make_mc_sharded_forward, make_mc_sharded_fused_pipeline
 from ..train.checkpoints import CheckpointStore
 from ..train.loop import merge_params, partition_params
 from .ecp import bbox_to_ecp_format
@@ -75,13 +84,12 @@ class InferenceRunner:
         self.model = YoloV3.from_config(config)
         self.spec = self.model.spec
         self.epistemic = self.spec.variant == Variant.BAYESIAN and config.inference_mode
-        if config.mesh_shape:
-            raise NotImplementedError("mesh_shape belongs to the multi-device slice")
         if config.quantize is not None:
             raise NotImplementedError("quantize belongs to the int8 slice")
         # run() then feeds host-packed planes to the fused early backbone
         self.packed = bool(config.packed_host_input)
-        # the dropout keys of every batch come from this CPU generator
+        # the dropout keys of every batch come from this CPU generator, seeded
+        # alike on every rank of an mc group: every rank draws the same table
         self.rng = torch.Generator(device="cpu")
         self.rng.manual_seed(seed)
         self.retried = 0  # batches the last run() re-ran with exact NMS
@@ -90,6 +98,51 @@ class InferenceRunner:
             stride: torch.from_numpy(p).to(self.device)
             for stride, p in priors_as_array(self.model.priors).items()
         }
+        self.group = None  # the mc axis's ranks, or None on a single device
+        self._mc_fused = None
+        self._mc_forward = None
+        self._setup_mesh(config.mesh_shape or {})
+
+    def _setup_mesh(self, shape):
+        cfg = self.config
+        unknown = set(shape) - {"mc", "dp", "sp"}
+        if unknown:
+            raise ValueError(f"unknown mesh axes {sorted(unknown)}; known: mc, dp, sp")
+        if shape.get("dp", 0) > 1:
+            raise NotImplementedError("the dp mesh axis belongs to the data-parallel "
+                                      "batched-inference slice")
+        if shape.get("sp", 0) > 1:
+            raise NotImplementedError("the sp mesh axis belongs to the spatial "
+                                      "(halo exchange) slice")
+        n = shape.get("mc", 0)
+        if n <= 1:
+            return
+        if not self.epistemic:
+            raise ValueError("the mc axis splits the MC samples of epistemic inference "
+                             "(bayesian, inference_mode)")
+        if cfg.T % n:
+            raise ValueError(f"T={cfg.T} must divide evenly over the mc axis ({n})")
+        if self.packed:
+            raise ValueError("packed_host_input is a single-device feed; the mc path "
+                             "takes NHWC images")
+        if cfg.fixed_mc_masks is not None and not cfg.use_pallas:
+            raise ValueError(
+                "fixed_mc_masks composes with the single-device epistemic paths and the "
+                "mc-sharded FUSED pipeline (use_pallas); the all-gather fallback draws "
+                "its keys per call")
+        self.group = make_group({"mc": n})
+        if cfg.use_pallas:
+            self._mc_fused = make_mc_sharded_fused_pipeline(
+                self.model, self.group, cfg.T, priors_by_stride=self._priors,
+                obj_idx=self.spec.obj_idx(epistemic=True),
+                nms_max_boxes=cfg.nms_max_boxes, nms_iou_thresh=cfg.nms_iou_thresh,
+                fixed_masks=cfg.fixed_mc_masks)
+        else:
+            self._mc_forward = make_mc_sharded_forward(self.model, self.group, cfg.T)
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.group is None else self.group.rank
 
     # -- checkpoint handling -------------------------------------------
 
@@ -112,8 +165,8 @@ class InferenceRunner:
     def device_batch_size(self) -> int:
         """Largest image batch one pipeline call takes: the image batch
         folds onto the anchor axis of the epistemic decode, onto the batch
-        axis of the batched forward."""
-        return self.config.batch_size
+        axis of the batched forward; the mc path is batch 1."""
+        return 1 if self.group is not None else self.config.batch_size
 
     def draw_keys(self, gen: Optional[torch.Generator] = None) -> Optional[np.ndarray]:
         """uint32 dropout keys for one batch, drawn from ``gen`` (default:
@@ -142,10 +195,15 @@ class InferenceRunner:
             )
             return fused_box_decode_all_scales(outs, self._priors, spec=self.spec)
         nb = imgs.shape[0]
-        outs = mc_forward_cf(
-            params, stats, imgs, spec=self.spec, T=self.config.T, rng=keys,
-            compute_dtype=self.model._dtype, packed_hw=packed_hw,
-        )
+        if self._mc_fused is not None:
+            return self._mc_fused.decode(params, stats, imgs, keys)[None]
+        if self._mc_forward is not None:
+            outs = self._mc_forward(params, stats, imgs, keys)
+        else:
+            outs = mc_forward_cf(
+                params, stats, imgs, spec=self.spec, T=self.config.T, rng=keys,
+                compute_dtype=self.model._dtype, packed_hw=packed_hw,
+            )
         return torch.cat(
             [
                 fused_epistemic_decode_cf_batched(
@@ -179,6 +237,17 @@ class InferenceRunner:
         rows, valid, _ = self._select(flat, 0)
         return rows, valid, True
 
+    def _launch(self, params, stats, images, keys):
+        """Launch one batch's device program (asynchronous); returns
+        ``finish() -> (rows, valid, retried)``, which waits for it.  The
+        fused mc pipeline runs its own exact NMS (no retry); every other
+        path decodes here and takes the certified NMS in ``finish``."""
+        if self._mc_fused is not None:
+            rows, valid = self._mc_fused(params, stats, images.float() / 255.0, keys)
+            return lambda: (rows, valid, False)
+        flat = self._decoded_rows(params, stats, images, keys)
+        return lambda: self._select_certified(flat)
+
     def _device_pipeline(self, params, stats, images, keys, *, pre_top_k):
         """The whole device program: uint8 batch -> (rows, valid, cert)."""
         return self._select(self._decoded_rows(params, stats, images, keys), pre_top_k)
@@ -199,8 +268,7 @@ class InferenceRunner:
         if keys is None:
             keys = self.draw_keys()
         images_d = torch.as_tensor(np.asarray(images)).to(self.device)
-        rows, valid, _ = self._select_certified(
-            self._decoded_rows(params, stats, images_d, keys))
+        rows, valid, _ = self._launch(params, stats, images_d, keys)()
         return rows.cpu().numpy(), valid.cpu().numpy()
 
     # -- host loop -------------------------------------------------------
@@ -209,23 +277,32 @@ class InferenceRunner:
         cfg = self.config
         params, stats, step = self.load_state()
         out_dir = f"{out_path or cfg.out_path}_{step}"
-        os.makedirs(out_dir)  # refuses to overwrite an earlier run's output
+        # refuses to overwrite an earlier run's output; over an mc group rank 0
+        # writes, and every rank refuses together (no rank left waiting in a
+        # collective that the others never reach)
+        fresh = not os.path.exists(out_dir)
+        if self.group is not None and not self.group.all_true(fresh, self.device):
+            raise FileExistsError(f"{out_dir} exists (seen by a rank of the mc group)")
+        if self.rank == 0:
+            os.makedirs(out_dir)
 
         batch_size = self.device_batch_size()
         loader = pipeline.TestLoader(cfg, batch_size=batch_size, pack_planes=self.packed)
         n = 0
         self.retried = 0
         start = time.time()
-        inflight = None  # (decoded rows on the device, bsz, names)
+        inflight = None  # (finish() of the launched batch, bsz, names)
         written: Optional[Future] = None  # the writer thread's previous batch
 
         def drain(entry):
             nonlocal written
-            flat, bsz, names = entry
-            rows_d, valid_d, retried = self._select_certified(flat)
+            finish, bsz, names = entry
+            rows_d, valid_d, retried = finish()
             self.retried += retried
             rows = rows_d[:bsz].cpu().numpy()
             valid = valid_d[:bsz].cpu().numpy()
+            if self.rank != 0:
+                return  # every rank holds the same rows; rank 0 writes them
             if written is not None:
                 written.result()  # a failed write raises here, not silently
             written = writer.submit(self._write_batch, rows, valid, names, out_dir)
@@ -240,14 +317,14 @@ class InferenceRunner:
                 # launch this batch's forward + decode BEFORE fetching the
                 # previous one's results: launches are asynchronous, the
                 # certificate check and the fetch in drain() synchronise
-                flat = self._decoded_rows(
+                finish = self._launch(
                     params, stats, torch.from_numpy(images).to(self.device),
                     self.draw_keys())
                 names = [f.decode() if isinstance(f, bytes) else f
                          for f in batch["filename"]]
                 if inflight is not None:
                     drain(inflight)
-                inflight = (flat, bsz, names)
+                inflight = (finish, bsz, names)
                 n += bsz
                 if n % 15 == 0:
                     log.info("Processed %d images.", n)

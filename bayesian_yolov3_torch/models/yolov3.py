@@ -10,9 +10,12 @@ MC-dropout inference runs the deterministic backbone once; the T samples
 of the dropout-bearing head section are stacked on the batch axis
 (sample-major: row ``t*NB + n``), where the JAX package ``vmap``s over T.
 Each of the 15 dropout sites takes one uint32 hash key per sample, so a
-key table is (T, 15).  Batched standard/aleatoric inference (``forward``,
-``forward_cf``) runs the heads once; the bayesian variant's dropout then
-takes a (1, 15) table.
+key table is (T, 15).  A mask depends on its (sample, site) key and the
+per-sample flat index only, not on how many samples are stacked: a rank of
+an ``mc`` group that runs rows [r*T/N, (r+1)*T/N) of the table
+(``parallel/epistemic.py``) draws exactly those samples' masks.  Batched
+standard/aleatoric inference (``forward``, ``forward_cf``) runs the heads
+once; the bayesian variant's dropout then takes a (1, 15) table.
 """
 
 from __future__ import annotations

@@ -1,0 +1,197 @@
+"""The split form of the epistemic decode, for MC samples sharded over
+ranks: the partial-moments and the finalize kernels, their wrappers and
+their plain PyTorch versions.
+
+Replace the TPU kernels ``bayesian_yolov3_tpu/ops/pallas_epistemic.py``
+``_moments_kernel`` (behind ``epistemic_moments_cf``) and
+``_finalize_kernel`` (behind ``epistemic_finalize``).  Each rank reduces
+its own samples to unscaled sums (``csrc/epistemic_moments.cu``), the sums
+are all-reduced (``parallel/epistemic.py``), and the global sums become
+the (21+C)-wide rows of the one-shot epistemic decode
+(``csrc/epistemic_finalize.cu``).  Both kernels share the per-sample sums
+and the row finalization with ``csrc/epistemic_decode.cu``
+(``csrc/decode_common.cuh``), so the split form differs from the one-shot
+kernel only in the order of the sums.  Both are bound by bytes.
+
+Moment row layout, M = 21+C rows per prior, anchors minor (the JAX
+package's order exactly, since the all-reduce adds it across ranks):
+
+    [0:4)      sum loc (tx, ty, tw, th)
+    [4:14)     sum loc_i * loc_j, upper triangle in (i <= j) row-major order
+    [14:18)    sum exp(log_loc_var)
+    [18]       sum sigmoid(obj)
+    [19]       sum logistic entropy of sigmoid(obj)
+    [20:20+C)  sum softmax(cls)
+    [20+C]     sum softmax entropy
+
+On a CUDA tensor the wrappers launch the kernel or raise; the plain
+versions run only for tensors that lie on the CPU (and where a caller asks
+for them by name, to compare).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build, decode
+
+MAX_CLASSES = 8  # MOM_MAX_C / FIN_MAX_C of the two sources
+
+TRIU = [(i, j) for i in range(4) for j in range(i, 4)]
+
+# kernel launches made by this module's wrappers, by kernel
+launch_counts = {"epistemic_moments": 0, "epistemic_finalize": 0}
+
+
+def _lib(name):
+    lib = _build.load(name)
+    fn = getattr(lib, f"{name}_launch")
+    if not fn.argtypes:
+        if name == "epistemic_moments":  # x, out, B, T, total, C, stream
+            fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                           + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+        else:  # m, pri, out, B, n_imgs, h, w, T, C, layer_id, stream
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_classes(cls_cnt):
+    if not 1 <= cls_cnt <= MAX_CLASSES:
+        raise ValueError(f"cls_cnt {cls_cnt} outside [1, {MAX_CLASSES}]")
+
+
+def _check_moments(raw_cf, cls_cnt, n_priors):
+    if raw_cf.dtype != torch.float32:
+        raise TypeError("the epistemic moments take float32 raws")
+    if raw_cf.dim() != 3:
+        raise ValueError(f"raw_cf has shape {tuple(raw_cf.shape)}, want (B*chpp, T, total)")
+    _check_classes(cls_cnt)
+    chpp = 2 * (5 + cls_cnt)
+    if raw_cf.shape[0] != n_priors * chpp:
+        raise ValueError(f"{raw_cf.shape[0]} channels != {n_priors} priors x {chpp}")
+    if raw_cf.shape[1] < 1:
+        raise ValueError("no MC samples")
+
+
+def _check_finalize(moments, priors_hw, T, h, w, cls_cnt, n_imgs):
+    if moments.dtype != torch.float32 or priors_hw.dtype != torch.float32:
+        raise TypeError("epistemic finalize takes float32 moments and priors")
+    if moments.dim() != 3 or priors_hw.dim() != 2 or priors_hw.shape[1] != 2:
+        raise ValueError(f"shapes {tuple(moments.shape)}, {tuple(priors_hw.shape)}")
+    _check_classes(cls_cnt)
+    B, M, total = moments.shape
+    if B != priors_hw.shape[0]:
+        raise ValueError(f"{B} priors of moments != {priors_hw.shape[0]} priors")
+    if M != 21 + cls_cnt:
+        raise ValueError(f"{M} moment rows != 21 + {cls_cnt}")
+    if total != n_imgs * h * w:
+        raise ValueError(f"anchor axis {total} != {n_imgs}*{h}*{w}")
+    if T < 1:
+        raise ValueError(f"T = {T}")
+    if priors_hw.device != moments.device:
+        raise ValueError("priors and moments lie on different devices")
+
+
+def epistemic_moments_plain(raw_cf, *, cls_cnt: int, n_priors: int = 3) -> torch.Tensor:
+    """The same function in plain PyTorch, over the whole sample axis."""
+    _check_moments(raw_cf, cls_cnt, n_priors)
+    ch, t_local, total = raw_cf.shape
+    x = raw_cf.reshape(n_priors, ch // n_priors, t_local, total)
+    loc = x[:, 0:4]  # (B, 4, T, total)
+    obj = torch.sigmoid(x[:, 8])  # (B, T, total)
+    probs = torch.softmax(x[:, 10:10 + cls_cnt], dim=1)  # (B, C, T, total)
+    sums = [
+        loc.sum(dim=2),
+        torch.stack([(loc[:, i] * loc[:, j]).sum(dim=1) for i, j in TRIU], dim=1),
+        torch.exp(x[:, 4:8]).sum(dim=2),
+        obj.sum(dim=1)[:, None],
+        decode.logistic_entropy(obj).sum(dim=1)[:, None],
+        probs.sum(dim=2),
+        (-decode._xlogx(probs).sum(dim=1)).sum(dim=1)[:, None],
+    ]
+    return torch.cat(sums, dim=1)  # (B, 21+C, total)
+
+
+def epistemic_moments_cf(raw_cf, *, cls_cnt: int, n_priors: int = 3) -> torch.Tensor:
+    """Partial epistemic moment sums over the LOCAL sample axis:
+    raw_cf (B*chpp, T_local, total) f32 (the ``detection_conv_cf`` layout)
+    -> (B, 21+C, total) f32.  All-reduce these across the ranks to get the
+    global sums for ``epistemic_finalize``."""
+    _check_moments(raw_cf, cls_cnt, n_priors)
+    if not raw_cf.is_cuda:
+        return epistemic_moments_plain(raw_cf, cls_cnt=cls_cnt, n_priors=n_priors)
+    if not raw_cf.is_contiguous():
+        raise ValueError("the epistemic moments kernel takes a contiguous raw_cf")
+    _, t_local, total = raw_cf.shape
+    out = torch.empty((n_priors, 21 + cls_cnt, total), dtype=torch.float32,
+                      device=raw_cf.device)
+    with torch.cuda.device(raw_cf.device):
+        rc = _lib("epistemic_moments")(
+            raw_cf.data_ptr(), out.data_ptr(), n_priors, t_local, total, cls_cnt,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"epistemic_moments kernel launch failed (cudaError {rc})")
+    launch_counts["epistemic_moments"] += 1
+    return out
+
+
+def epistemic_finalize_plain(moments, priors_hw, *, T: int, h: int, w: int, cls_cnt: int,
+                             layer_id: int, n_imgs: int = 1) -> torch.Tensor:
+    """The same function in plain PyTorch: the sums scaled by 1/T, the
+    covariance E[xx^T] - E[x]E[x]^T and the predictive entropies, then
+    decode_bbox_epistemic -> concat, as the one-shot plain version ends."""
+    _check_finalize(moments, priors_hw, T, h, w, cls_cnt, n_imgs)
+    B, M, _ = moments.shape
+    m = (moments * (1.0 / T)).reshape(B, M, n_imgs, h, w).permute(2, 3, 4, 0, 1)
+    ev = m[..., 0:4]  # (n_imgs, h, w, B, 4)
+    cov = torch.empty((*ev.shape, 4), dtype=torch.float32, device=m.device)
+    for k, (i, j) in enumerate(TRIU):
+        cij = m[..., 4 + k] - ev[..., i] * ev[..., j]
+        cov[..., i, j] = cij
+        cov[..., j, i] = cij
+    obj_mean = m[..., 18]
+    obj_pred_ent = decode.logistic_entropy(obj_mean)
+    cls_mean = m[..., 20:20 + cls_cnt]
+    cls_pred_ent = decode.softmax_entropy(cls_mean)
+    stats = {
+        "ev_loc": ev,
+        "epi_covar_loc": cov,
+        "ale_var_loc": m[..., 14:18],
+        "obj_mean": obj_mean,
+        "obj_mutual_info": obj_pred_ent - m[..., 19],
+        "obj_entropy": obj_pred_ent,
+        "cls_mean": cls_mean,
+        "cls_mutual_info": cls_pred_ent - m[..., 20 + cls_cnt],
+        "cls_entropy": cls_pred_ent,
+    }
+    rows = decode.decode_bbox_epistemic(stats, priors_hw, layer_id)  # (n, h, w, B, W)
+    return decode.concat_all_scales_batched([rows])
+
+
+def epistemic_finalize(moments, priors_hw, *, T: int, h: int, w: int, cls_cnt: int,
+                       layer_id: int, n_imgs: int = 1) -> torch.Tensor:
+    """Global moment sums (B, 21+C, n_imgs*h*w) f32 -> (n_imgs, B*h*w, 21+C)
+    f32 rows in the reference concat order per image, the output of
+    ``fused_epistemic_decode_cf_batched``.  ``T`` is the GLOBAL sample count
+    (every rank's samples), which scales the sums."""
+    _check_finalize(moments, priors_hw, T, h, w, cls_cnt, n_imgs)
+    if not moments.is_cuda:
+        return epistemic_finalize_plain(moments, priors_hw, T=T, h=h, w=w, cls_cnt=cls_cnt,
+                                        layer_id=layer_id, n_imgs=n_imgs)
+    if not moments.is_contiguous():
+        raise ValueError("the epistemic finalize kernel takes contiguous moments")
+    B = moments.shape[0]
+    pri = priors_hw.contiguous()
+    out = torch.empty((n_imgs, B * h * w, 21 + cls_cnt), dtype=torch.float32,
+                      device=moments.device)
+    with torch.cuda.device(moments.device):
+        rc = _lib("epistemic_finalize")(
+            moments.data_ptr(), pri.data_ptr(), out.data_ptr(), B, n_imgs, h, w, T,
+            cls_cnt, layer_id, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"epistemic_finalize kernel launch failed (cudaError {rc})")
+    launch_counts["epistemic_finalize"] += 1
+    return out

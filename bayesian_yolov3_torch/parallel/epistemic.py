@@ -1,0 +1,110 @@
+"""MC-sample-parallel epistemic inference over a ``torch.distributed`` group.
+
+PyTorch counterpart of the JAX package's ``parallel/epistemic.py``.  The T
+MC-dropout samples of one image are split over the N ranks of an ``mc``
+group (``parallel.mesh.make_group``); every rank runs the backbone on the
+whole image and the dropout-bearing heads on its T/N samples.  Two ways:
+
+* ``make_mc_sharded_fused_pipeline`` — the fast one: each rank reduces its
+  samples to unscaled moment sums (``ops.cuda_moments.epistemic_moments_cf``,
+  a hand-written kernel), the sums are all-reduced (one (B, 21+C, h*w)
+  float32 tensor per scale, independent of T), and every rank finalizes
+  the global sums into the decoded rows (``epistemic_finalize``, a second
+  kernel), concatenates the scales and runs exact NMS.
+* ``make_mc_sharded_forward`` — the fallback: each rank computes its
+  samples' raw heads and all-gathers them, so every rank holds all T
+  samples (ch, T, h*w) per scale, for the one-shot epistemic decode.
+
+Keys.  Every rank draws the same full (T, 15) key table — from the caller's
+generator seeded identically on every rank, or the constant table of
+``fixed_masks`` — and takes its rows ``local_rows(table, rank, N)``.  A
+hash-dropout mask depends on its (sample, site) key and the per-sample
+flat index only, not on how many samples are stacked, so the sharded
+samples equal the single-device samples of the same table: drawn keys and
+fixed masks alike (the JAX package's rbg keys are not layout-invariant;
+this port's are).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.yolov3 import _key_table, mc_forward_cf
+from ..ops import nms
+from ..ops.cuda_moments import epistemic_finalize, epistemic_moments_cf
+from .mesh import Group, local_rows
+
+STRIDES = (32, 16, 8)
+
+
+def _check_split(T: int, group: Group):
+    if T % group.size:
+        raise ValueError(f"T={T} does not divide over the {group.size} ranks of the mc axis")
+
+
+def _local_raws(model, group: Group, T: int, fixed_masks, params, stats, img, rng):
+    """This rank's samples of the three raw heads: [(raw_cf (ch, T/N, h*w),
+    (h, w)), ...], from its rows of the full key table."""
+    if img.shape[0] != 1:
+        raise ValueError("the mc-sharded path is batch 1")
+    keys = local_rows(_key_table(rng, fixed_masks, T), group.rank, group.size)
+    return mc_forward_cf(params, stats, img, spec=model.spec, T=T // group.size, rng=keys,
+                         compute_dtype=model._dtype)
+
+
+def make_mc_sharded_forward(model, group: Group, T: int):
+    """Build ``fn(params, stats, img (1, H, W, 3) float, rng) -> [(raw_cf
+    (ch, T, h*w), (h, w)), ...]``: the raw heads of all T samples on every
+    rank, in global sample order, each rank having computed T/N of them.
+    ``rng``: a CPU ``torch.Generator`` seeded alike on every rank, or a
+    (T, 15) key table."""
+    _check_split(T, group)
+
+    @torch.no_grad()
+    def call(params, stats, img, rng):
+        outs = _local_raws(model, group, T, None, params, stats, img, rng)
+        return [(group.all_gather(raw_cf, dim=1), hw) for raw_cf, hw in outs]
+
+    return call
+
+
+def make_mc_sharded_fused_pipeline(model, group: Group, T: int, *, priors_by_stride,
+                                   obj_idx: int, nms_max_boxes: int = 1000,
+                                   nms_iou_thresh: float = 0.5, fixed_masks=None):
+    """Build ``fn(params, stats, img (1, H, W, 3) float, rng=None) -> (rows
+    (1, max_out, 21+C), valid (1, max_out))``:
+
+      per rank:    backbone -> heads on the rank's T/N samples -> the
+                   channels-first 1x1 detection conv -> partial moment sums
+      collective:  all-reduce (sum) of the (B, 21+C, h*w) float32 sums
+      every rank:  finalize with the GLOBAL T -> concat scales -> exact NMS
+
+    ``fn.decode`` stops before NMS.  ``priors_by_stride``: {stride: (B, 2)
+    tensor on the rank's device}.  ``fixed_masks`` (int seed or None): the
+    constant key table of the single-device fixed-mask runs; ``rng`` is
+    then ignored, else it is a CPU ``torch.Generator`` seeded alike on
+    every rank or a (T, 15) table.  NMS is exact (over every anchor), so
+    there is no certificate to check and no retry."""
+    _check_split(T, group)
+    C = model.spec.cls_cnt
+
+    @torch.no_grad()
+    def decode(params, stats, img, rng=None) -> torch.Tensor:
+        """The decoded rows of every anchor, (N_total, 21+C), the same on
+        every rank: local sums -> all-reduce -> finalize, per scale."""
+        outs = _local_raws(model, group, T, fixed_masks, params, stats, img, rng)
+        decoded = []
+        for i, ((raw_cf, (h, w)), stride) in enumerate(zip(outs, STRIDES)):
+            moments = group.all_reduce(epistemic_moments_cf(raw_cf, cls_cnt=C))
+            decoded.append(epistemic_finalize(
+                moments, priors_by_stride[stride], T=T, h=h, w=w, cls_cnt=C,
+                layer_id=i)[0])  # (B*h*w, 21+C)
+        return torch.cat(decoded, dim=0)
+
+    def call(params, stats, img, rng=None):
+        rows, valid, _ = nms.nms_select(decode(params, stats, img, rng), obj_idx,
+                                        nms_max_boxes, nms_iou_thresh, pre_top_k=0)
+        return rows[None], valid[None]
+
+    call.decode = decode
+    return call

@@ -1,0 +1,147 @@
+"""Process groups for the multi-device axes, over ``torch.distributed``.
+
+PyTorch counterpart of the JAX package's ``parallel/mesh.py``.  Where JAX
+builds a named mesh of devices that one program spans, here every device
+is driven by a process of its own (a rank), and the ranks meet in
+collectives of a process group:
+
+* axis ``mc`` — the MC-dropout samples of epistemic inference, split over
+  the ranks (``parallel/epistemic.py``).
+
+The other axes of the JAX package (``dp``, ``sp``) belong to later slices
+of the port.
+
+Bring-up: ``torchrun --nproc_per_node N`` sets ``RANK`` / ``WORLD_SIZE`` /
+``LOCAL_RANK`` and ``maybe_initialize_from_config`` joins the group from
+them; ``Config.coordinator_address`` (with ``num_processes`` and
+``process_id``) names a ``tcp://`` rendezvous instead.  The backend is
+``nccl`` for ranks on CUDA devices and ``gloo`` on the CPU unless the
+caller names one: two ranks on ONE card need ``gloo`` (NCCL refuses two
+ranks on one device).  Nothing here changes the backend or the device
+because a collective failed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+log = logging.getLogger("byolo.mesh")
+
+
+def initialize_distributed(backend: Optional[str] = None, init_method: Optional[str] = None,
+                           world_size: Optional[int] = None, rank: Optional[int] = None,
+                           device="cuda") -> None:
+    """Join the default process group (``dist.init_process_group``).
+
+    ``backend`` defaults to ``nccl`` for a CUDA ``device`` and ``gloo`` for
+    the CPU.  ``init_method`` ``None`` reads torchrun's environment
+    (``env://``).  On a CUDA device the device becomes the current one
+    first, so NCCL binds the rank to it.  Raises if a group with another
+    world size or rank is already initialised."""
+    if dist.is_initialized():
+        if ((world_size is not None and dist.get_world_size() != world_size)
+                or (rank is not None and dist.get_rank() != rank)):
+            raise RuntimeError(
+                f"a process group of world size {dist.get_world_size()} (rank "
+                f"{dist.get_rank()}) is already initialised; asked for world size "
+                f"{world_size}, rank {rank}")
+        return
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend or ("nccl" if device.type == "cuda" else "gloo"),
+                            init_method=init_method or "env://",
+                            world_size=-1 if world_size is None else world_size,
+                            rank=-1 if rank is None else rank)
+    log.info("joined process group: rank %d of %d (%s)", dist.get_rank(),
+             dist.get_world_size(), dist.get_backend())
+
+
+def maybe_initialize_from_config(config, device="cuda") -> bool:
+    """Join the process group that the configuration or torchrun names:
+    ``config.coordinator_address`` (host:port; world size
+    ``config.num_processes``, rank ``config.process_id``) if set, else
+    torchrun's ``RANK`` / ``WORLD_SIZE`` environment if present.  Returns
+    True when the process runs in a group, False for a single process."""
+    if dist.is_initialized():
+        return True
+    if config.coordinator_address:
+        addr = config.coordinator_address
+        initialize_distributed(
+            None, addr if "://" in addr else f"tcp://{addr}",
+            world_size=config.num_processes, rank=config.process_id, device=device)
+        return True
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        initialize_distributed(None, "env://", device=device)
+        return True
+    return False
+
+
+def local_rank() -> int:
+    """The rank's index among the ranks of its host (torchrun's LOCAL_RANK;
+    0 for a single process)."""
+    return int(os.environ.get("LOCAL_RANK", 0))
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """One axis of ranks over the default process group: its size and
+    this process's rank on it."""
+
+    size: int
+    rank: int
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the group's ranks, in place."""
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        return t
+
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's ``t`` concatenated along ``dim`` in rank order."""
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t.contiguous())
+        return torch.cat(parts, dim=dim)
+
+    def all_true(self, flag: bool, device) -> bool:
+        """True iff ``flag`` holds on every rank of the group."""
+        t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=device)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        return int(t.item()) == self.size
+
+
+def make_group(shape: Dict[str, int]) -> Group:
+    """The group of one named axis, e.g. ``{'mc': N}``, over the ranks of
+    the initialised default process group.  Raises unless N equals its
+    world size (the JAX package's ``make_mesh`` asserts the same)."""
+    if len(shape) != 1:
+        raise ValueError(f"one axis per group; got {shape}")
+    (n,) = shape.values()
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"mesh_shape {shape} needs an initialised process group of world size {n}: "
+            "none is (run under torchrun, set coordinator_address, or call "
+            "parallel.initialize_distributed first)")
+    if dist.get_world_size() != n:
+        raise RuntimeError(
+            f"mesh_shape {shape} needs an initialised process group of world size {n}; "
+            f"this one has {dist.get_world_size()} ranks")
+    return Group(size=n, rank=dist.get_rank())
+
+
+def local_rows(table: np.ndarray, rank: int, n: int) -> np.ndarray:
+    """Rank ``rank``'s share of a (T, ...) key table: rows
+    [rank*T/n, (rank+1)*T/n) — the global samples that rank computes."""
+    T = table.shape[0]
+    if T % n:
+        raise ValueError(f"T={T} does not divide over {n} ranks")
+    if not 0 <= rank < n:
+        raise ValueError(f"rank {rank} outside [0, {n})")
+    per = T // n
+    return table[rank * per:(rank + 1) * per]

@@ -29,12 +29,27 @@ main_path_batched
 timing      img/s of each path after a warm-up, a stage breakdown, and for the
             batched paths run()'s wall img/s beside the host loader and the
             JSON writer, each timed alone
+mc_split    the split form on one card: the moments of n shards of one frame's
+            T=30 raws summed and finalized, against the one-shot epistemic
+            decode kernel, n = 1, 2, 3, 5
+main_path_mc
+            the fused mc-sharded pipeline (parallel/epistemic.py) over a
+            one-rank NCCL group at 1024x1920, T=30, fixed masks, bf16 and
+            float32: launches, rows against the single-device runner's exact-NMS
+            rows, ms per frame, stages, peak memory
+main_path_mc_2ranks
+            two spawned ranks on the one card over gloo, each running
+            InferenceRunner(mesh_shape={'mc': 2}).run() over 2 frames (bf16),
+            against the same split computed here and the one-rank rows; the
+            all-gather fallback (use_pallas=False) on one frame
 
 Then the card line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
-then exits non-zero and prints no result line.
+then exits non-zero and prints no result line.  The two-rank phase starts
+two processes (spawned, joined under a timeout) and leaves none behind.
 """
 
+import dataclasses
 import glob
 import json
 import math
@@ -43,19 +58,25 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from bayesian_yolov3_torch.config import Config, DataConfig
 from bayesian_yolov3_torch.convert import tree_to
 from bayesian_yolov3_torch.core.priors import priors_as_array
 from bayesian_yolov3_torch.data import pipeline, proto, tfrecord
 from bayesian_yolov3_torch.infer.detect import Detector
+from bayesian_yolov3_torch.infer.ecp import bbox_to_ecp_format
 from bayesian_yolov3_torch.infer.runner import InferenceRunner
 from bayesian_yolov3_torch.models import darknet, yolov3
 from bayesian_yolov3_torch.ops import (
-    _build, common, cuda_conv, cuda_decode, cuda_epistemic, cuda_nms, nms)
+    _build, common, cuda_conv, cuda_decode, cuda_epistemic, cuda_moments, cuda_nms, nms)
+from bayesian_yolov3_torch.parallel import (
+    initialize_distributed, local_rows, make_group, make_mc_sharded_fused_pipeline)
 from bayesian_yolov3_torch.train.checkpoints import CheckpointStore
 from bayesian_yolov3_torch.train.loop import partition_params
 
@@ -173,6 +194,122 @@ def check_epistemic(dev, flush):
         "tolerance": [{"columns": list(c), "rtol": r, "atol": a} for c, r, a in EPI_TOL],
         "note": "ms/plain_ms/bound_ms: the three launches of one 1024x1920 image summed",
         "shapes": per_shape,
+    }
+
+
+# kernels 10-11 against their plain versions.  The moment sums: float32 sums
+# over up to 30 samples, sequential in the kernel and blocked in the plain
+# version; that order moves a sum by up to ~T * 2^-24 * sum|x|, about 5e-5 for
+# 30 unit-scale products — hence atol 1e-4 beside rtol 1e-5.  The finalized
+# rows: the same elementwise float32 arithmetic in the same order on the same
+# sums (no FMA on either side), a few ulp apart where expf / logf differ;
+# ids exactly.
+MOM_TOL = (1e-5, 1e-4)
+FIN_TOL = (1e-5, 1e-6)
+SPLIT_CASES = [(h, w, t, c) for h, w in SCALES for t in (30, 15, 1) for c in (1, 2, 8)]
+
+
+def _err_over_tol(got, want, rtol, atol):
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def check_epistemic_moments(dev, flush):
+    """Kernel against plain version at the three ECP scales, T_local 30 / 15
+    / 1, C 1 / 2 / 8; times at the main paths' shapes (C=2, T_local=30 on one
+    rank and 15 on each of two), the three scales of one image summed."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rtol, atol = MOM_TOL
+    worst, worst_ratio, timed = 0.0, 0.0, {}
+    for h, w, t_local, c in SPLIT_CASES:
+        raw = torch.randn((3 * 2 * (5 + c), t_local, h * w), generator=gen, device=dev)
+        got = cuda_moments.epistemic_moments_cf(raw, cls_cnt=c)
+        torch.cuda.synchronize()
+        want = cuda_moments.epistemic_moments_plain(raw, cls_cnt=c)
+        name = f"epistemic_moments(T_local={t_local}, C={c}, {(h, w)})"
+        check(got.shape == want.shape == (3, 21 + c, h * w), f"{name}: shape {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        ratio = _err_over_tol(got, want, rtol, atol)
+        check(ratio <= 1.0, f"{name} disagrees with its plain version (rtol {rtol}, atol "
+                            f"{atol}): max abs {float((got - want).abs().max())}")
+        worst, worst_ratio = max(worst, float((got - want).abs().max())), max(worst_ratio, ratio)
+        if c == C and t_local in (30, 15):
+            # the bytes the function must move: the 9+C channels it reads of
+            # every sample, the sums it writes
+            nbytes = (3 * (9 + c) * t_local * h * w + got.numel()) * 4
+            flops = 3 * t_local * h * w * (60 + 12 * c)
+            rec = timed.setdefault(t_local, {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0})
+            rec["ms"] += event_ms(lambda: cuda_moments.epistemic_moments_cf(raw, cls_cnt=c),
+                                  10, flush)
+            rec["plain_ms"] += event_ms(lambda: cuda_moments.epistemic_moments_plain(
+                raw, cls_cnt=c), 3, flush)
+            rec["bytes"] += nbytes
+            rec["flops"] += flops
+        del raw, got, want
+    for rec in timed.values():
+        t_b, t_f = rec["bytes"] / HBM_BYTES_PER_S, rec["flops"] / FP32_FLOPS
+        rec.update(bound_ms=max(t_b, t_f) * 1e3, bound_by="bytes" if t_b >= t_f else "operations")
+    main = timed[30]
+    return {
+        "name": "epistemic_moments", "route": "cuda",
+        "source": "bayesian_yolov3_torch/csrc/epistemic_moments.cu",
+        "replaces": "bayesian_yolov3_tpu/ops/pallas_epistemic.py:156",
+        "max_abs_err": worst, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+        "tolerance": {"rtol": rtol, "atol": atol}, "max_err_over_tolerance": worst_ratio,
+        "shapes_checked": len(SPLIT_CASES), "T_local_30": timed[30], "T_local_15": timed[15],
+        "note": "ms/plain_ms/bound_ms: the three launches of one 1024x1920 image at C=2 and "
+                "T_local=30 (one rank) summed, each launch timed alone after an L2 flush; "
+                "`T_local_15` gives the same for each of two ranks; no single PyTorch call "
+                "computes the moments",
+    }
+
+
+def check_epistemic_finalize(dev, flush):
+    """Kernel against plain version on the sums of real samples at the three
+    ECP scales, T 30 / 15 / 1, C 1 / 2 / 8, and n_imgs 2 at C=2, T=30; times
+    at the main path's shapes (C=2, T=30, one image), three scales summed."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    priors = torch.tensor([[0.3, 0.1], [0.15, 0.05], [0.08, 0.02]], device=dev)
+    rtol, atol = FIN_TOL
+    cases = [(1, *k) for k in SPLIT_CASES] + [(2, h, w, 30, C) for h, w in SCALES]
+    worst, worst_ratio = 0.0, 0.0
+    timed = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0}
+    for k, (nb, h, w, t, c) in enumerate(cases):
+        raw = torch.randn((3 * 2 * (5 + c), t, nb * h * w), generator=gen, device=dev)
+        sums = cuda_moments.epistemic_moments_plain(raw, cls_cnt=c)
+        del raw
+        kw = dict(T=t, h=h, w=w, cls_cnt=c, layer_id=k % 3, n_imgs=nb)
+        got = cuda_moments.epistemic_finalize(sums, priors, **kw)
+        torch.cuda.synchronize()
+        want = cuda_moments.epistemic_finalize_plain(sums, priors, **kw)
+        name = f"epistemic_finalize(T={t}, C={c}, n_imgs={nb}, {(h, w)})"
+        check(got.shape == want.shape == (nb, 3 * h * w, 21 + c), f"{name}: shape")
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        check(torch.equal(got[..., -2:], want[..., -2:]), f"{name}: id columns differ")
+        ratio = _err_over_tol(got[..., :-2], want[..., :-2], rtol, atol)
+        check(ratio <= 1.0, f"{name} disagrees with its plain version (rtol {rtol}, atol "
+                            f"{atol}): max abs {float((got - want).abs().max())}")
+        worst, worst_ratio = max(worst, float((got - want).abs().max())), max(worst_ratio, ratio)
+        if nb == 1 and c == C and t == T:
+            timed["ms"] += event_ms(lambda: cuda_moments.epistemic_finalize(sums, priors, **kw),
+                                    10, flush)
+            timed["plain_ms"] += event_ms(lambda: cuda_moments.epistemic_finalize_plain(
+                sums, priors, **kw), 3, flush)
+            timed["bytes"] += (sums.numel() + got.numel() + priors.numel()) * 4
+        del sums, got, want
+    return {
+        "name": "epistemic_finalize", "route": "cuda",
+        "source": "bayesian_yolov3_torch/csrc/epistemic_finalize.cu",
+        "replaces": "bayesian_yolov3_tpu/ops/pallas_epistemic.py:181",
+        "max_abs_err": worst, "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+        "bound_ms": timed["bytes"] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None, "bytes": timed["bytes"],
+        "tolerance": {"rtol": rtol, "atol": atol, "id_columns": "exact"},
+        "max_err_over_tolerance": worst_ratio, "shapes_checked": len(cases),
+        "note": "ms/plain_ms/bound_ms: the three launches of one 1024x1920 image at C=2, T=30 "
+                "summed, each launch timed alone after an L2 flush; a few hundred flops per "
+                "anchor against 184 bytes, so bytes bound it; no single PyTorch call "
+                "computes the finalize",
     }
 
 
@@ -624,14 +761,19 @@ def reset_counters():
     cuda_epistemic.launch_count = 0
     cuda_decode.launch_count = 0
     cuda_nms.launch_count = 0
-    for name in cuda_conv.launch_counts:
-        cuda_conv.launch_counts[name] = 0
+    for counts in (cuda_conv.launch_counts, cuda_moments.launch_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def read_counters():
     return {"epistemic_decode": cuda_epistemic.launch_count,
             "box_decode": cuda_decode.launch_count,
-            "greedy_nms": cuda_nms.launch_count, **cuda_conv.launch_counts}
+            "greedy_nms": cuda_nms.launch_count, **cuda_conv.launch_counts,
+            **cuda_moments.launch_counts}
+
+
+MC_KERNELS = ("epistemic_moments", "epistemic_finalize")  # the mc path's own
 
 
 # bf16 rows, card against CPU or packed against image-fed input: the
@@ -789,10 +931,12 @@ def main_path(tmp, dev, n_frames=3):
     runner = InferenceRunner(cfg, seed=0)  # device: the card, by default
     out_dir, launches, bf16_summary = run_and_check(runner, n_frames)
     check(out_dir.endswith("_1"), f"output dir {out_dir} lacks the step suffix")
-    check(launches["box_decode"] == 0, "the epistemic main path ran the box decode")
-    check(all(n > 0 for k, n in launches.items() if k != "box_decode"),
+    others = ("box_decode", *MC_KERNELS)  # kernels of the batched and the mc paths
+    check(not any(launches[k] for k in others),
+          f"the single-device epistemic main path ran one of {others}: {launches}")
+    check(all(n > 0 for k, n in launches.items() if k not in others),
           f"the bf16 main path launched no kernel of: "
-          f"{[k for k, n in launches.items() if not n and k != 'box_decode']}")
+          f"{[k for k, n in launches.items() if not n and k not in others]}")
     passes = launches["fused_stem"]  # one stem launch per pipeline pass
     check(launches["fused_res_block"] == 11 * passes
           and launches["fused_downsample"] == 2 * passes
@@ -926,6 +1070,391 @@ def timing(runner, params, stats, frames, dev, card):
 
 
 # --------------------------------------------------------------------------
+# the mc-sharded epistemic path
+# --------------------------------------------------------------------------
+
+# the split form (moments summed over shards, then finalized) against the
+# one-shot decode: the JAX package's own tolerances for that comparison
+# (tests/test_pallas.py:151-153) — the same expressions, the sums reordered
+SPLIT_TOL = (((0, 12), 1e-4, 1e-5), ((12, 13), 1e-3, 1e-6), ((13, 21 + C), 1e-4, 2e-4))
+MC_MASKS = 7  # fixed_mc_masks seed of the mc phases
+MC_RANKS = 2
+MC_RANKS_TIMEOUT_S = 300  # a rank that hangs fails the phase at this join timeout
+
+
+def split_agree(name, got, want):
+    check(got.shape == want.shape, f"{name}: shapes {tuple(got.shape)} {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite rows")
+    check(torch.equal(got[..., 21:], want[..., 21:]), f"{name}: layer / prior ids differ")
+    worst = 0.0
+    for (lo, hi), rtol, atol in SPLIT_TOL:
+        ratio = _err_over_tol(got[..., lo:hi], want[..., lo:hi], rtol, atol)
+        check(ratio <= 1.0, f"{name}: columns {lo}:{hi} beyond rtol {rtol} / atol {atol}: "
+                            f"max abs {float((got[..., lo:hi] - want[..., lo:hi]).abs().max())}")
+        worst = max(worst, ratio)
+    return {"max_abs_err": float((got - want).abs().max()), "max_err_over_tolerance": worst,
+            "bit_identical": bool(torch.equal(got, want))}
+
+
+def finalize_shards(runner, shards):
+    """The decoded rows of one image (1, N_total, 21+C) from its samples split
+    into shards (per shard the three [(raw_cf, (h, w))] of mc_forward_cf): the
+    moments of each shard summed on the card (the all-reduce), finalized."""
+    rows = []
+    for i, s in enumerate((32, 16, 8)):
+        h, w = shards[0][i][1]
+        sums = sum(cuda_moments.epistemic_moments_cf(sh[i][0], cls_cnt=C) for sh in shards)
+        rows.append(cuda_moments.epistemic_finalize(sums, runner._priors[s], T=T, h=h, w=w,
+                                                    cls_cnt=C, layer_id=i))
+    return torch.cat(rows, dim=1)
+
+
+def split_rows(runner, params, stats, x, keys, n_shards):
+    """The rows of one image as n_shards ranks compute them, on one card:
+    each shard's samples through the heads on their own, then
+    ``finalize_shards``."""
+    per = T // n_shards
+    with torch.no_grad():
+        shards = [yolov3.mc_forward_cf(params, stats, x, spec=runner.spec, T=per,
+                                       rng=keys[k * per:(k + 1) * per],
+                                       compute_dtype=runner.model._dtype)
+                  for k in range(n_shards)]
+    return finalize_shards(runner, shards)
+
+
+def mc_split(runner, params, stats, frame, dev):
+    """The raws of one full-width frame, T=30 (the runner's compute dtype):
+    for n_shards 1, 2, 3, 5 the moments of each shard summed on the card and
+    finalized, against the one-shot epistemic_decode kernel on the same raws."""
+    x = torch.from_numpy(frame[None]).to(dev).float() / 255.0
+    keys = yolov3._fixed_key_table(MC_MASKS, T)
+    with torch.no_grad():
+        outs = yolov3.mc_forward_cf(params, stats, x, spec=runner.spec, T=T, rng=keys,
+                                    compute_dtype=runner.model._dtype)
+    want = torch.cat([cuda_epistemic.fused_epistemic_decode_cf_batched(
+        raw, runner._priors[s], n_imgs=1, h=hw[0], w=hw[1], cls_cnt=C, layer_id=i)
+        for i, ((raw, hw), s) in enumerate(zip(outs, (32, 16, 8)))], dim=1)
+    out = {"compute_dtype": runner.config.compute_dtype, "T": T}
+    for n in (1, 2, 3, 5):
+        per = T // n
+        shards = [[(raw[:, k * per:(k + 1) * per].contiguous(), hw) for raw, hw in outs]
+                  for k in range(n)]
+        got = finalize_shards(runner, shards)
+        torch.cuda.synchronize()
+        out[f"n_shards_{n}"] = split_agree(f"mc_split(n_shards={n})", got, want)
+    return out
+
+
+def mc_pipeline(runner, group):
+    return make_mc_sharded_fused_pipeline(
+        runner.model, group, T, priors_by_stride=runner._priors,
+        obj_idx=runner.spec.obj_idx(epistemic=True), nms_max_boxes=MAX_OUT,
+        fixed_masks=MC_MASKS)
+
+
+def main_path_mc(tmp, dev, card, runners, params, stats, frames):
+    """The fused mc pipeline (``make_mc_sharded_fused_pipeline``) over a
+    one-rank NCCL group at 1024x1920, T=30, fixed masks, bf16 and float32:
+    kernel launches of its run over the frames, its rows against the
+    single-device runner's exact-NMS rows for the same frame and keys, ms per
+    frame and a stage breakdown, peak device memory."""
+    initialize_distributed("nccl", "file://" + os.path.join(tmp, "nccl_store"), world_size=1,
+                           rank=0, device=dev)
+    out, launches_bf16 = {}, None
+    try:
+        group = make_group({"mc": 1})
+        for runner in runners:
+            dtype = runner.config.compute_dtype
+            pipe = mc_pipeline(runner, group)
+            imgs = [torch.from_numpy(f[None]).to(dev).float() / 255.0 for f in frames]
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            results = [pipe(params, stats, x) for x in imgs]
+            torch.cuda.synchronize()
+            launches = read_counters()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            n = len(frames)
+            bf16 = dtype == "bfloat16"
+            want = {"epistemic_moments": 3 * n, "epistemic_finalize": 3 * n, "greedy_nms": n,
+                    "epistemic_decode": 0, "box_decode": 0, "fused_stem": n * bf16,
+                    "fused_res_block": 11 * n * bf16, "fused_downsample": 2 * n * bf16}
+            check(launches == want, f"main_path_mc {dtype}: launches {launches}, want {want}")
+            if bf16:
+                launches_bf16 = launches
+
+            # against the single-device runner: exact NMS, the same fixed masks
+            ref = InferenceRunner(make_config(tmp, "smoke", IMG, T, "", compute_dtype=dtype,
+                                              fixed_mc_masks=MC_MASKS, nms_max_boxes=MAX_OUT,
+                                              nms_pre_top_k=0), seed=0)
+            agree = []
+            for f, (rows, valid) in zip(frames, results):
+                want_rows, want_valid = ref.predict(params, stats, f[None])
+                check(np.array_equal(valid.cpu().numpy(), want_valid),
+                      f"main_path_mc {dtype}: valid masks differ from the single-device runner's")
+                agree.append(split_agree(f"main_path_mc {dtype}", rows.cpu(),
+                                         torch.from_numpy(want_rows)))
+
+            # ms per frame after the warm-up above, and the stages
+            x = imgs[0]
+            keys = yolov3._fixed_key_table(MC_MASKS, T)
+            bb, bs = params["backbone"], stats["backbone"]
+            tdt = runner.model._dtype
+            st = {"ms_per_frame": event_ms(lambda: pipe(params, stats, x), 3)}
+            with torch.no_grad():
+                st["backbone_ms"] = event_ms(lambda: darknet.darknet53(bb, bs, x, compute_dtype=tdt), 3)
+                st["backbone_heads_ms"] = event_ms(lambda: yolov3.mc_forward_cf(
+                    params, stats, x, spec=runner.spec, T=T, rng=keys, compute_dtype=tdt), 3)
+                st["heads_ms"] = st["backbone_heads_ms"] - st["backbone_ms"]
+                outs = yolov3.mc_forward_cf(params, stats, x, spec=runner.spec, T=T, rng=keys,
+                                            compute_dtype=tdt)
+                st["moments_ms"] = event_ms(lambda: [cuda_moments.epistemic_moments_cf(
+                    r, cls_cnt=C) for r, _ in outs], 3)
+                sums = [cuda_moments.epistemic_moments_cf(r, cls_cnt=C) for r, _ in outs]
+                st["all_reduce_ms"] = event_ms(lambda: [group.all_reduce(m) for m in sums], 3)
+                st["finalize_ms"] = event_ms(lambda: [cuda_moments.epistemic_finalize(
+                    m, runner._priors[s], T=T, h=hw[0], w=hw[1], cls_cnt=C, layer_id=i)
+                    for i, (m, (_, hw), s) in enumerate(zip(sums, outs, (32, 16, 8)))], 3)
+                flat = pipe.decode(params, stats, x)
+                st["nms_exact_ms"] = event_ms(lambda: nms.nms_select(
+                    flat, runner.spec.obj_idx(epistemic=True), MAX_OUT, 0.5, pre_top_k=0), 3)
+            del outs, sums, flat
+            out[dtype] = {"frames": n, "launches": launches,
+                          "launches_per_frame": {k: v / n for k, v in launches.items()},
+                          "peak_mem_GB": peak, "detections": [int(v.sum()) for _, v in results],
+                          "vs_single_device": agree, "timing": st, "card": card}
+    finally:
+        dist.destroy_process_group()
+    return out, launches_bf16
+
+
+def _mc_rank(rank, store, cfg, res_dir, frame0_path, dev):
+    """One spawned rank of ``main_path_mc_2ranks``: run() over the dataset,
+    then the decoded rows of frame 0 through the fused pipeline and through
+    the all-gather fallback, one fallback predict(), and timings."""
+    dev = torch.device(dev)
+    res = {"rank": rank}
+    try:
+        initialize_distributed("gloo", f"file://{store}", world_size=MC_RANKS, rank=rank,
+                               device=dev)
+        runner = InferenceRunner(cfg, seed=0, device=dev)
+        writes = []
+        write = runner._write_batch
+        runner._write_batch = lambda *a: (writes.append(1), write(*a))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.time()
+        res["out_dir"] = runner.run()
+        torch.cuda.synchronize()
+        res.update(run_wall_s=time.time() - t0, loop=runner.last_run, launches=read_counters(),
+                   peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9, writes=len(writes),
+                   retried=runner.retried)
+
+        params, stats, _ = runner.load_state()
+        img = torch.from_numpy(np.load(frame0_path)[None]).to(dev)
+        keys = runner.draw_keys()  # the fixed table
+        rows_fused = runner._decoded_rows(params, stats, img, keys)
+        # the all-gather fallback, same frame and keys: the one-shot decode of
+        # the gathered samples against the fused split form of the same samples
+        fb = InferenceRunner(dataclasses.replace(cfg, use_pallas=False, fixed_mc_masks=None),
+                             seed=0, device=dev)
+        reset_counters()
+        rows_fb = fb._decoded_rows(params, stats, img, keys)
+        rows, valid = fb.predict(params, stats, np.load(frame0_path)[None])  # drawn keys
+        torch.cuda.synchronize()
+        res["fallback"] = {"launches": read_counters(), "detections": int(valid.sum()),
+                           "retried": fb.retried, "finite": bool(np.isfinite(rows).all()),
+                           "vs_fused": split_agree(f"rank {rank}: fallback against fused",
+                                                   rows_fb, rows_fused)}
+        torch.save(rows_fused.cpu(), os.path.join(res_dir, f"rows{rank}.pt"))
+
+        # ms per frame of the device program (both ranks in step), the gloo
+        # all-reduce of one frame's sums on the host clock
+        def one():
+            return runner._launch(params, stats, img, keys)()
+
+        one()
+        torch.cuda.synchronize()
+        res["ms_per_frame"] = event_ms(one, 3)
+        with torch.no_grad():
+            outs = yolov3.mc_forward_cf(params, stats, img.float() / 255.0, spec=runner.spec,
+                                        T=cfg.T // MC_RANKS,
+                                        rng=local_rows(keys, rank, MC_RANKS),
+                                        compute_dtype=runner.model._dtype)
+        sums = [cuda_moments.epistemic_moments_cf(r, cls_cnt=C) for r, _ in outs]
+        res["all_reduce_wall_ms"] = wall_ms(lambda: [runner.group.all_reduce(m) for m in sums], 3)
+        res["all_reduce_bytes"] = sum(m.numel() * 4 for m in sums)
+    except BaseException:
+        res["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(os.path.join(res_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def wall_ms(fn, reps):
+    """Median host-clock time of ``fn`` in ms, the device drained before and
+    after each reading (for collectives that block the host, as gloo's do)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _dets_close(name, got, want):
+    """ECP detections of one frame, in NMS order, at the split tolerances
+    carried to JSON units (pixels for the corners)."""
+    check(len(got) == len(want) > 0, f"{name}: {len(got)} detections, want {len(want)}")
+    worst = 0.0
+    for g, w in zip(got, want):
+        check(g["identity"] == w["identity"] and g["layer_id"] == w["layer_id"]
+              and g["prior_id"] == w["prior_id"], f"{name}: another detection picked")
+        for k, v in w.items():
+            if k in ("identity", "layer_id", "prior_id"):
+                continue
+            gv, wv = np.asarray(g[k], np.float64), np.asarray(v, np.float64)
+            atol = 1e-5 * max(IMG[:2]) if k in ("x0", "y0", "x1", "y1") else 2e-4
+            rtol = 1e-3 if k == "total_var_epi" else 1e-4
+            ratio = float((np.abs(gv - wv) / (atol + rtol * np.abs(wv))).max())
+            check(ratio <= 1.0, f"{name}: {k} {g[k]} against {v}")
+            worst = max(worst, ratio)
+    return worst
+
+
+def _dets_paired(name, got, want):
+    """ECP detections of one frame from two runs whose rows differ in the
+    last bits (sums in another order): each of ``got`` paired with the
+    detection of ``want`` at the same anchor (layer, prior, corners within
+    the split tolerance in pixels), the other fields held to the split
+    tolerances.  Returns the share of ``got`` that pairs up; a near-tie may
+    swap two picks of NMS, so not every detection need pair."""
+    keys = ("y0", "x0", "y1", "x1")
+    wid = np.array([[d["layer_id"], d["prior_id"]] for d in want])
+    wbox = np.array([[d[k] for k in keys] for d in want])
+    tol = 1e-5 * max(IMG[:2])
+    paired = 0
+    for g in got:
+        same = np.flatnonzero((wid[:, 0] == g["layer_id"]) & (wid[:, 1] == g["prior_id"]))
+        if not len(same):
+            continue
+        d = np.abs(wbox[same] - np.array([g[k] for k in keys])).max(axis=1)
+        if d.min() <= tol + 1e-4 * np.abs(wbox[same[d.argmin()]]).max():
+            _dets_close(name, [g], [want[same[d.argmin()]]])
+            paired += 1
+    return paired / max(len(got), 1)
+
+
+def main_path_mc_2ranks(tmp, dev, card, runner, params, stats):
+    """Two spawned ranks on the one card over gloo (NCCL refuses two ranks
+    on one device), each running InferenceRunner(mesh_shape={'mc': 2}).run()
+    over 2 frames at 1024x1920, T=30, bf16, fixed masks.  Rank 0 writes the
+    JSON, rank 1 none.  Rank 0's JSON against the same split computed on one
+    card in this process (the same samples per shard: the split tolerance,
+    detection by detection), and against the one-rank run (T=30 in one
+    batch: detections paired by anchor at the split tolerance, frame 0's
+    decoded rows at the bf16 jitter bound); the all-gather fallback on one
+    frame."""
+    pattern, frames = write_dataset(os.path.join(tmp, "data_mc"), np.random.default_rng(17),
+                                    2, IMG[:2])
+    cfg = make_config(tmp, "smoke", IMG, T, pattern, fixed_mc_masks=MC_MASKS,
+                      mesh_shape={"mc": MC_RANKS}, nms_max_boxes=MAX_OUT,
+                      out_path=os.path.join(tmp, "out", "smoke_mc2"))
+    res_dir = os.path.join(tmp, "mc_ranks")
+    os.makedirs(res_dir)
+    frame0 = os.path.join(res_dir, "frame0.npy")
+    np.save(frame0, frames[0])
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_mc_rank, args=(r, os.path.join(res_dir, "store"), cfg,
+                                                res_dir, frame0, str(dev)))
+             for r in range(MC_RANKS)]
+    t0 = time.time()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(0.0, t0 + MC_RANKS_TIMEOUT_S - time.time()))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    ranks = []
+    for r in range(MC_RANKS):
+        path = os.path.join(res_dir, f"rank{r}.json")
+        ranks.append(json.load(open(path)) if os.path.exists(path) else {"error": "no result"})
+    errors = [r.get("error") for r in ranks if r.get("error")]
+    check(not hung, f"{len(hung)} rank(s) still running after {MC_RANKS_TIMEOUT_S} s: {errors}")
+    check([p.exitcode for p in procs] == [0] * MC_RANKS, f"a rank failed: {errors}")
+    wall = time.time() - t0
+
+    r0, r1 = ranks
+    check(r0["out_dir"] == r1["out_dir"], "the ranks returned different output directories")
+    check(r0["writes"] == 2 and r1["writes"] == 0, f"writes: rank 0 {r0['writes']}, "
+                                                   f"rank 1 {r1['writes']}")
+    for r in ranks:
+        want = {"epistemic_moments": 6, "epistemic_finalize": 6, "greedy_nms": 2,
+                "epistemic_decode": 0, "box_decode": 0, "fused_stem": 2, "fused_res_block": 22,
+                "fused_downsample": 4}
+        check(r["launches"] == want, f"rank {r['rank']}: launches {r['launches']}, want {want}")
+        check(r["retried"] == 0, "the fused mc path retried NMS")
+        fb = r["fallback"]["launches"]
+        check(fb["epistemic_decode"] == 6 and fb["greedy_nms"] >= 1
+              and fb["epistemic_moments"] == 0 and r["fallback"]["finite"]
+              and r["fallback"]["detections"] > 0, f"rank {r['rank']} fallback: {r['fallback']}")
+    got = {os.path.basename(f): json.load(open(f))["children"]
+           for f in sorted(glob.glob(os.path.join(r0["out_dir"], "*.json")))}
+    check(sorted(got) == ["frame_0000.json", "frame_0001.json"], f"JSON files {sorted(got)}")
+
+    # the same split on this card, frame by frame -> ECP detections
+    keys = yolov3._fixed_key_table(MC_MASKS, T)
+    obj = runner.spec.obj_idx(epistemic=True)
+    json_worst = 0.0
+    for i, f in enumerate(frames):
+        x = torch.from_numpy(f[None]).to(dev).float() / 255.0
+        flat = split_rows(runner, params, stats, x, keys, MC_RANKS)
+        rows, valid, _ = nms.nms_select(flat[0], obj, MAX_OUT, 0.5, pre_top_k=0)
+        rows, valid = rows.cpu().numpy(), valid.cpu().numpy()
+        want = [bbox_to_ecp_format(rows[k], IMG, runner.spec, epistemic=True)
+                for k in np.flatnonzero(valid)]
+        json_worst = max(json_worst, _dets_close(f"rank 0 frame {i}", got[f"frame_{i:04d}.json"],
+                                                 json.loads(json.dumps(want))))
+    # against the one-rank run (main_path_mc's pipeline, all 30 samples in one
+    # batch): rank 0's JSON paired detection by detection, and frame 0's
+    # decoded rows anchor by anchor (bf16 jitter bound)
+    initialize_distributed("nccl", "file://" + os.path.join(res_dir, "nccl_store"),
+                           world_size=1, rank=0, device=dev)
+    try:
+        pipe = mc_pipeline(runner, make_group({"mc": 1}))
+        paired = []
+        for i, f in enumerate(frames):
+            x = torch.from_numpy(f[None]).to(dev).float() / 255.0
+            rows, valid = (a[0].cpu().numpy() for a in pipe(params, stats, x))
+            want = json.loads(json.dumps([bbox_to_ecp_format(rows[k], IMG, runner.spec,
+                                                             epistemic=True)
+                                          for k in np.flatnonzero(valid)]))
+            paired.append(_dets_paired(f"rank 0 frame {i} against one rank",
+                                       got[f"frame_{i:04d}.json"], want))
+            if i == 0:
+                one_rank = pipe.decode(params, stats, x)
+    finally:
+        dist.destroy_process_group()
+    check(min(paired) >= 0.99, f"rank 0's detections paired with the one-rank run's: {paired}")
+    rows0 = torch.load(os.path.join(res_dir, "rows0.pt"))
+    check(torch.equal(rows0, torch.load(os.path.join(res_dir, "rows1.pt"))),
+          "the two ranks decoded different rows")
+    vs_one_rank = rows_agree_bf16("2 ranks against 1 rank", rows0, one_rank[None].cpu())
+    return {"ranks": MC_RANKS, "backend": "gloo", "frames": 2, "phase_wall_s": wall,
+            "json_vs_same_split_max_err_over_tolerance": json_worst,
+            "json_vs_one_rank_paired_share": paired,
+            "rows_vs_one_rank": vs_one_rank, "per_rank": ranks, "card": card}
+
+
+# --------------------------------------------------------------------------
 # the batched standard / aleatoric path
 # --------------------------------------------------------------------------
 
@@ -944,6 +1473,7 @@ def make_batched_config(tmp, name, model, pattern, **kw):
 def check_batched_launches(name, launches, n_batches, bf16):
     """3 box-decode launches per batch, no epistemic decode, NMS, and the
     fused conv kernels 1 / 11 / 2 times per batch in bf16, never in float32."""
+    check(not any(launches[k] for k in MC_KERNELS), f"{name}: an mc kernel ran")
     check(launches["box_decode"] == 3 * n_batches,
           f"{name}: {launches['box_decode']} box_decode launches for {n_batches} batches")
     check(launches["epistemic_decode"] == 0, f"{name}: the epistemic decode ran")
@@ -1098,6 +1628,43 @@ def timing_batched(runner, frames, dev, card):
             "card": card}
 
 
+def _numbers(d):
+    """The flat numbers of a phase's result (no nested dicts, lists or flags)."""
+    return {k: v for k, v in d.items()
+            if isinstance(v, (int, float)) and not isinstance(v, bool)}
+
+
+def _peaks(summary):
+    return {name: run["peak_mem_GB"] for name, run in summary.items()
+            if isinstance(run, dict) and "peak_mem_GB" in run}
+
+
+def summarize(main_summary, timings, split, mc, mc2, b_summary, b_timings):
+    """One compact line of the numbers each phase measured (ms per frame,
+    stages, all-reduce, peak memory of every run, launches per frame),
+    printed just before the kernels line so that the end of the output
+    holds it."""
+    out = {"peak_mem_GB": {"epistemic": _peaks(main_summary), "batched": _peaks(b_summary)},
+           "epistemic": {t["compute_dtype"]: _numbers(t) for t in timings}}
+    out["mc_split_max_err_over_tolerance"] = {
+        k: v["max_err_over_tolerance"] for k, v in split.items() if k.startswith("n_shards")}
+    out["mc_one_rank_nccl"] = {dtype: {
+        **r["timing"], "peak_mem_GB": r["peak_mem_GB"],
+        "launches_per_frame": r["launches_per_frame"],
+        "max_err_over_tolerance": max(a["max_err_over_tolerance"]
+                                      for a in r["vs_single_device"])}
+        for dtype, r in mc.items() if isinstance(r, dict) and "timing" in r}
+    out["mc_two_ranks_gloo"] = {
+        "phase_wall_s": mc2["phase_wall_s"],
+        "json_vs_same_split_max_err_over_tolerance":
+            mc2["json_vs_same_split_max_err_over_tolerance"],
+        "json_vs_one_rank_paired_share": mc2["json_vs_one_rank_paired_share"],
+        "per_rank": [{**_numbers(r), "run_loop": r["loop"]} for r in mc2["per_rank"]]}
+    out["batched"] = [{"path": t["path"], "compute_dtype": t["compute_dtype"], **_numbers(t)}
+                      for t in b_timings]
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False",
@@ -1120,7 +1687,8 @@ def main():
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)  # > 50 MB L2
     kernels = [check_epistemic(dev, flush), check_nms(dev), check_stem(dev, flush),
                check_res_block(dev, flush), check_downsample(dev, flush),
-               check_box_decode(dev, flush)]
+               check_box_decode(dev, flush), check_epistemic_moments(dev, flush),
+               check_epistemic_finalize(dev, flush)]
     del flush
     emit("kernels", card=card, kernels=kernels)
 
@@ -1129,18 +1697,31 @@ def main():
             emit("small_ref", **small_reference(tmp, dev, dtype))
         runner, runner32, params, stats, frames, launches, summary = main_path(tmp, dev)
         emit("main_path", card=card, **summary)
-        emit("timing", **timing(runner32, params, stats, frames, dev, card))
-        emit("timing", **timing(runner, params, stats, frames, dev, card))
+        timings = [timing(r, params, stats, frames, dev, card) for r in (runner32, runner)]
+        for t in timings:
+            emit("timing", **t)
+        split = mc_split(runner, params, stats, frames[0], dev)
+        emit("mc_split", card=card, **split)
+        mc_summary, mc_launches = main_path_mc(tmp, dev, card, (runner, runner32), params,
+                                               stats, frames)
+        emit("main_path_mc", **mc_summary)
+        mc2 = main_path_mc_2ranks(tmp, dev, card, runner, params, stats)
+        emit("main_path_mc_2ranks", **mc2)
         del runner, runner32, params, stats
         b_runner, b_runner32, b_frames, b_launches, b_summary = main_path_batched(tmp, dev)
         emit("main_path_batched", card=card, **b_summary)
-        emit("timing", **timing_batched(b_runner32, b_frames, dev, card))
-        emit("timing", **timing_batched(b_runner, b_frames, dev, card))
+        b_timings = [timing_batched(r, b_frames, dev, card) for r in (b_runner32, b_runner)]
+        for t in b_timings:
+            emit("timing", **t)
 
     # launches: each kernel's count from its own path's run — the epistemic
-    # bf16 main path, and for box_decode the batched aleatoric bf16 run
+    # bf16 main path; for box_decode the batched aleatoric bf16 run; for the
+    # moments and finalize kernels the bf16 run of the mc pipeline
     for k in kernels:
-        k["launches"] = (b_launches if k["name"] == "box_decode" else launches)[k["name"]]
+        path = {"box_decode": b_launches, **{m: mc_launches for m in MC_KERNELS}}
+        k["launches"] = path.get(k["name"], launches)[k["name"]]
+    emit("summary", card=card, **summarize(summary, timings, split, mc_summary, mc2, b_summary,
+                                        b_timings))
     emit("done", seconds=time.time() - t_start)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -51,7 +51,10 @@ def test_every_module_is_listed():
                    "bayesian_yolov3_torch.cli.inference_standard_yolov3",
                    "bayesian_yolov3_torch.cli.inference_aleatoric",
                    "bayesian_yolov3_torch.cli.detect",
-                   "bayesian_yolov3_torch.data.pipeline", "bayesian_yolov3_torch.convert"):
+                   "bayesian_yolov3_torch.data.pipeline", "bayesian_yolov3_torch.convert",
+                   "bayesian_yolov3_torch.ops.cuda_moments", "bayesian_yolov3_torch.parallel",
+                   "bayesian_yolov3_torch.parallel.mesh",
+                   "bayesian_yolov3_torch.parallel.epistemic"):
         assert needed in MODULES
 
 
@@ -64,7 +67,8 @@ def test_kernel_sources_are_found_without_a_compiler():
     """Importing builds nothing; the build names every kernel's source."""
     from bayesian_yolov3_torch.ops import _build
 
-    assert _build.kernel_names() == ["box_decode", "epistemic_decode", "fused_downsample",
+    assert _build.kernel_names() == ["box_decode", "epistemic_decode", "epistemic_finalize",
+                                     "epistemic_moments", "fused_downsample",
                                      "fused_res_block", "fused_stem", "greedy_nms"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
