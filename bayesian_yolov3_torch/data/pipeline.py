@@ -9,11 +9,12 @@ Output batches are dicts of numpy arrays::
     image  (B, H, W, 3) uint8
     filename (B,) bytes
 
-PNG needs nothing beyond the standard library and numpy: ``decode_png``
-uses the libpng helper of the repository's ``native/`` directory when that
-library is built, and otherwise a ``zlib`` + numpy decoder for 8-bit gray
-or RGB, non-interlaced files with all five row filters; ``encode_png``
-writes such files (filter 0).
+PNG needs no PIL: ``decode_png`` uses the libpng helper of the repository's
+``native/`` directory for 8-bit alpha-free files when that library is built,
+and otherwise a ``zlib`` + numpy decoder whose row unfilter is a small C
+helper (``csrc/png_unfilter.c``, built at first use by ``ops._build``); both
+return what the JAX package's PIL decode returns, for every colour type,
+bit depth and interlace.  ``encode_png`` writes 8-bit gray or RGB files.
 """
 
 from __future__ import annotations
@@ -99,46 +100,74 @@ def _png_chunks(data: bytes):
         pos += 12 + length
 
 
+_UNFILTER = None
+
+
+def _unfilter_fn():
+    """``png_unfilter`` of ``csrc/png_unfilter.c``, built at first use."""
+    global _UNFILTER
+    if _UNFILTER is None:
+        from ..ops import _build
+
+        fn = _build.load_host("png_unfilter").png_unfilter
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int]
+        _UNFILTER = fn
+    return _UNFILTER
+
+
 def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the per-row PNG filters.  raw: (h, 1 + stride) uint8."""
-    out = np.zeros((h, stride), np.uint8)
-    zero = np.zeros(stride, np.uint8)
-    for y in range(h):
-        ftype = int(raw[y, 0])
-        line = raw[y, 1:]
-        prior = out[y - 1] if y else zero
-        if ftype == 0:
-            out[y] = line
-        elif ftype == 1:  # Sub: running sum per byte lane, mod 256
-            out[y] = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
-        elif ftype == 2:  # Up
-            out[y] = line + prior
-        elif ftype in (3, 4):  # Average / Paeth: sequential in the row
-            cur = bytearray(stride)
-            ln, pr = line.tolist(), prior.tolist()
-            for i in range(stride):
-                a = cur[i - bpp] if i >= bpp else 0
-                b = pr[i]
-                if ftype == 3:
-                    pred = (a + b) >> 1
-                else:
-                    c = pr[i - bpp] if i >= bpp else 0
-                    p = a + b - c
-                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-                    pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
-                cur[i] = (ln[i] + pred) & 0xFF
-            out[y] = np.frombuffer(bytes(cur), np.uint8)
-        else:
-            raise ValueError(f"bad PNG filter type {ftype}")
+    """Undo the per-row PNG filters (all five types) in C.  raw: (h, 1 + stride)
+    uint8 -> (h, stride) uint8; ``bpp`` is the filter's byte distance."""
+    raw = np.ascontiguousarray(raw, dtype=np.uint8)
+    if raw.shape != (h, stride + 1):
+        raise ValueError(f"PNG rows {raw.shape}, want ({h}, {stride + 1})")
+    out = np.empty((h, stride), np.uint8)
+    bad = _unfilter_fn()(raw.ctypes.data, out.ctypes.data, h, stride, bpp)
+    if bad < 0:
+        raise ValueError(f"no PNG format has a filter distance of {bpp} bytes")
+    if bad:
+        raise ValueError(f"bad PNG filter type {int(raw[bad - 1, 0])} in row {bad - 1}")
+    return out
+
+
+# colour type -> (samples per pixel, allowed bit depths)
+_PNG_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
+              4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7 passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _unpack_samples(rows: np.ndarray, n: int, depth: int) -> np.ndarray:
+    """Unfiltered rows (h, rowbytes) -> the first ``n`` samples of each row,
+    (h, n), uint8 for depths up to 8 and uint16 for 16 (big-endian)."""
+    if depth == 8:
+        return rows[:, :n]
+    if depth == 16:
+        pairs = rows[:, :2 * n].reshape(rows.shape[0], n, 2).astype(np.uint16)
+        return (pairs[..., 0] << 8) | pairs[..., 1]
+    bits = np.unpackbits(rows, axis=1)[:, :n * depth].reshape(rows.shape[0], n, depth)
+    out = np.zeros((rows.shape[0], n), np.uint8)
+    for i in range(depth):  # most significant bit first
+        out = (out << 1) | bits[..., i]
     return out
 
 
 def _decode_png_zlib(data: bytes) -> np.ndarray:
-    ihdr = None
-    idat = []
+    """PNG bytes -> (h, w, 3) uint8 with zlib, numpy and the C unfilter:
+    every colour type and bit depth, Adam7 included, converted as PIL's
+    ``Image.convert("RGB")`` converts them — 16-bit gray clipped at 255,
+    other 16-bit samples by their high byte, sub-8-bit gray scaled to
+    0..255, palette indices through PLTE (black past its end), alpha and
+    tRNS dropped."""
+    ihdr, plte, idat = None, None, []
     for ctype, body in _png_chunks(data):
         if ctype == b"IHDR":
             ihdr = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif ctype == b"IDAT":
             idat.append(body)
         elif ctype == b"IEND":
@@ -146,25 +175,56 @@ def _decode_png_zlib(data: bytes) -> np.ndarray:
     if ihdr is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = ihdr
-    if depth != 8 or ctype not in (0, 2) or interlace:
-        raise ValueError(
-            f"unsupported PNG (bit depth {depth}, colour type {ctype}, "
-            f"interlace {interlace}): this decoder takes 8-bit gray or RGB, "
-            "non-interlaced files"
-        )
-    bpp = 3 if ctype == 2 else 1
-    stride = w * bpp
+    if ctype not in _PNG_TYPES or depth not in _PNG_TYPES[ctype][1] or interlace > 1:
+        raise ValueError(f"unsupported PNG (bit depth {depth}, colour type {ctype}, "
+                         f"interlace {interlace})")
+    if ctype == 3 and plte is None:
+        raise ValueError("palette PNG without PLTE")
+    ch = _PNG_TYPES[ctype][0]
+    bits = ch * depth
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (stride + 1):
+    samples = np.empty((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
+        if not pw or not ph:
+            continue  # an empty pass has no rows, not even filter bytes
+        rowbytes = (pw * bits + 7) // 8
+        n = ph * (rowbytes + 1)
+        if pos + n > raw.size:
+            raise ValueError("PNG data has the wrong length")
+        rows = _unfilter(raw[pos:pos + n].reshape(ph, rowbytes + 1), ph, rowbytes,
+                         max(1, bits // 8))
+        pos += n
+        samples[y0::dy, x0::dx] = _unpack_samples(rows, pw * ch, depth).reshape(ph, pw, ch)
+    if pos != raw.size:
         raise ValueError("PNG data has the wrong length")
-    pix = _unfilter(raw.reshape(h, stride + 1), h, stride, bpp)
-    if bpp == 1:
-        return np.repeat(pix.reshape(h, w, 1), 3, axis=2)
-    return pix.reshape(h, w, 3)
+    if ctype == 3:
+        pal = np.zeros((256, 3), np.uint8)
+        pal[:min(len(plte), 256)] = plte[:256]
+        return pal[samples[..., 0]]
+    if depth == 16:
+        # PIL: 16-bit gray opens as I;16 and clips; the rest keep the high byte
+        samples = (np.minimum(samples, 255) if ctype == 0 else samples >> 8).astype(np.uint8)
+    elif depth < 8:
+        samples = samples * np.uint8(255 // ((1 << depth) - 1))
+    if ctype in (0, 4):
+        return np.repeat(samples[..., :1], 3, axis=2)
+    return np.ascontiguousarray(samples[..., :3])
+
+
+def png_decoder_name() -> str:
+    """Which decoder ``decode_png`` takes for 8-bit alpha-free files."""
+    if _png_native():
+        return "native libpng (native/libbyolo_native.so)"
+    return "zlib + C unfilter (csrc/png_unfilter.c)"
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (h, w, 3) uint8 (the [0,1) scaling happens on device)."""
+    """PNG bytes -> (h, w, 3) uint8 (the [0,1) scaling happens on device),
+    equal to the JAX package's ``decode_png`` (PIL's ``convert("RGB")``)
+    for every PNG: 8-bit alpha-free files through the native libpng helper
+    when it is built, everything else through ``_decode_png_zlib``."""
     lib = _png_native()
     if lib:
         h, w, flags = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
@@ -181,8 +241,37 @@ def decode_png(data: bytes) -> np.ndarray:
     return _decode_png_zlib(data)
 
 
-def encode_png(img: np.ndarray, level: int = 6) -> bytes:
-    """(h, w, 3) or (h, w) uint8 -> PNG bytes (8-bit, filter 0 on every row)."""
+def _filter_rows(rows: np.ndarray, bpp: int, filters) -> np.ndarray:
+    """(h, n) uint8 rows -> (h, 1 + n) PNG scanlines, row y stored with the
+    filter type ``filters[y % len(filters)]`` (0 None .. 4 Paeth)."""
+    x = rows.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    ftype = np.resize(np.asarray(filters, np.uint8), rows.shape[0])
+    out = np.empty((rows.shape[0], rows.shape[1] + 1), np.uint8)
+    out[:, 0] = ftype
+    for t in range(5):
+        m = ftype == t
+        if not m.any():
+            continue
+        a_m, b_m, c_m = a[m], b[m], c[m]
+        if t == 4:
+            p = a_m + b_m - c_m
+            pa, pb, pc = np.abs(p - a_m), np.abs(p - b_m), np.abs(p - c_m)
+            pred = np.where((pa <= pb) & (pa <= pc), a_m, np.where(pb <= pc, b_m, c_m))
+        else:
+            pred = (0, a_m, b_m, (a_m + b_m) >> 1)[t]
+        out[m, 1:] = (x[m] - pred) & 0xFF
+    return out
+
+
+def encode_png(img: np.ndarray, level: int = 6, filters=(0,)) -> bytes:
+    """(h, w, 3) or (h, w) uint8 -> PNG bytes (8-bit); row y is stored with
+    filter type ``filters[y % len(filters)]`` (default: 0 on every row)."""
     img = np.ascontiguousarray(img, dtype=np.uint8)
     if img.ndim == 2:
         ctype, rows = 0, img
@@ -190,9 +279,10 @@ def encode_png(img: np.ndarray, level: int = 6) -> bytes:
         ctype, rows = 2, img.reshape(img.shape[0], -1)
     else:
         raise ValueError(f"encode_png takes (h, w) or (h, w, 3) uint8, got {img.shape}")
+    if not set(filters) <= {0, 1, 2, 3, 4}:
+        raise ValueError(f"PNG filter types are 0..4, got {filters}")
     h, w = img.shape[:2]
-    raw = np.zeros((h, rows.shape[1] + 1), np.uint8)
-    raw[:, 1:] = rows
+    raw = _filter_rows(rows, 1 if ctype == 0 else 3, filters)
 
     def chunk(tag: bytes, body: bytes) -> bytes:
         return (struct.pack(">I", len(body)) + tag + body

@@ -173,9 +173,12 @@ def _fused_early_stages(params, stats, x, compute_dtype, packed_hw=None):
     else:
         xs = _space_to_depth(x.to(bf16))
 
-    def bn_of(i):
+    def bn_args(i):
         p, s = params[_conv_name(i)], stats[_conv_name(i)]
-        return cc.fold_bn(p["gamma"], p["beta"], s["mean"], s["var"])
+        return p["gamma"], p["beta"], s["mean"], s["var"]
+
+    def bn_of(i):  # folded once per set of parameter tensors (``cc.cached``)
+        return cc.cached(cc.fold_bn, *bn_args(i))
 
     def w_of(i):
         return params[_conv_name(i)]["w"]
@@ -183,10 +186,8 @@ def _fused_early_stages(params, stats, x, compute_dtype, packed_hw=None):
     def res(h, i):
         return cc.fused_res_block(h, w_of(i), w_of(i + 1), bn_of(i), bn_of(i + 1))
 
-    k3, k2 = _stem_kernels(w_of(0).to(bf16), w_of(1).to(bf16))
-    # conv_00's BN tiled over the four pixel phases of its 128 s2d channels
-    bn1 = tuple(v.repeat(4) for v in bn_of(0))
-    h = cc.fused_stem(xs, k3, k2, bn1, bn_of(1))
+    k3, k2 = cc.cached(_stem_kernels_bf16, w_of(0), w_of(1))
+    h = cc.fused_stem(xs, k3, k2, cc.cached(_stem_bn1, *bn_args(0)), bn_of(1))
     h = res(h, 2)
     h = cc.fused_downsample_packed(h, w_of(4), bn_of(4))
     h = res(res(h, 5), 7)
@@ -195,6 +196,18 @@ def _fused_early_stages(params, stats, x, compute_dtype, packed_hw=None):
         h = res(h, i)
     skip8 = h.to(compute_dtype)
     return skip8, 26, skip8
+
+
+def _stem_kernels_bf16(w0: torch.Tensor, w1: torch.Tensor):
+    return _stem_kernels(w0.to(torch.bfloat16), w1.to(torch.bfloat16))
+
+
+def _stem_bn1(gamma, beta, mean, var):
+    """conv_00's folded BN tiled over the four pixel phases of its 128
+    space-to-depth channels."""
+    from ..ops.cuda_conv import fold_bn
+
+    return tuple(v.repeat(4) for v in fold_bn(gamma, beta, mean, var))
 
 
 def _fused_early_auto(x: torch.Tensor, compute_dtype) -> bool:

@@ -11,6 +11,11 @@ built once per checkout and an edited header rebuilds its users.
 Importing this module needs neither ``nvcc`` nor a card; only
 ``load(...)`` does.  A build or load failure raises — no caller falls back
 to a plain PyTorch version on a CUDA tensor.
+
+``load_host(name)`` does the same for a host-only helper, ``csrc/<name>.c``,
+with the host C compiler (``$CC``, else ``cc``): the PNG loader's row
+unfilter.  It needs no CUDA toolkit, so the CPU tests build and run it too;
+a failed build raises with the compiler's message.
 """
 
 from __future__ import annotations
@@ -30,8 +35,11 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
+CC_FLAGS = ["-O2", "-shared", "-fPIC"]
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+build_logs: Dict[str, str] = {}  # compiler output of this process's builds, by kernel
 
 
 def build_dir() -> str:
@@ -52,10 +60,14 @@ def _nvcc() -> str:
     return exe
 
 
-def _target(name: str) -> str:
-    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for fname in [name + ".cu", *headers]:
+def _target(name: str, source: str = None, flags=NVCC_FLAGS) -> str:
+    if source is None:
+        headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+        sources = [name + ".cu", *headers]
+    else:
+        sources = [source]
+    h = hashlib.sha256(" ".join(flags).encode())
+    for fname in sources:
         with open(os.path.join(CSRC_DIR, fname), "rb") as f:
             h.update(fname.encode() + b"\0" + f.read() + b"\0")
     return os.path.join(build_dir(), f"lib{name}_{h.hexdigest()[:16]}.so")
@@ -84,8 +96,7 @@ def build_all(verbose: bool = False) -> Dict[str, str]:
             if proc.returncode != 0:
                 errors.append(f"nvcc failed for {name}.cu:\n{log}")
                 continue
-            if verbose and log:
-                print(log, flush=True)
+            build_logs[name] = log
             os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
         if errors:
             raise RuntimeError("\n".join(errors))
@@ -99,4 +110,29 @@ def load(name: str) -> ctypes.CDLL:
         path = build_all()[name]
         with _lock:
             lib = _libs.setdefault(name, ctypes.CDLL(path))
+    return lib
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of the host-only ``csrc/<name>.c``, compiled by the
+    host C compiler at first use (into the same build directory, named by
+    a hash of the source and flags)."""
+    key = "host:" + name
+    lib = _libs.get(key)
+    if lib is not None:
+        return lib
+    with _lock:
+        out = _target(name, name + ".c", CC_FLAGS)
+        if not os.path.exists(out):
+            os.makedirs(build_dir(), exist_ok=True)
+            cc = os.environ.get("CC") or shutil.which("cc") or shutil.which("gcc")
+            if not cc:
+                raise RuntimeError(f"no C compiler (cc) to build csrc/{name}.c")
+            tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+            proc = subprocess.run([cc, *CC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".c")],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{cc} failed for csrc/{name}.c:\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
+        lib = _libs.setdefault(key, ctypes.CDLL(out))
     return lib

@@ -28,15 +28,18 @@ rounded to bf16 once.
 
 On a CUDA tensor a wrapper launches its kernel or raises; the plain version
 runs only for tensors that lie on the CPU (and where a caller asks for it by
-name, to compare).  The kernels' weight layouts ``(cout, K)`` are made from
-the OIHW tensors inside the wrapper on every call (a few small copies, the
-largest 590 KB: ``_*_kernel_weights``); nothing is cached between calls.
+name, to compare).  The kernels' weight layouts are made from the OIHW
+tensors by ``_*_kernel_weights`` once per set of weight tensors and kept
+(``cached``, which also serves the folded BN affines of
+``models.darknet._fused_early_stages``): a source tensor that is replaced,
+or written in place, gets a fresh layout on its next call.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import weakref
+from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,6 +55,44 @@ MAX_ROWS = 4 * 65535  # tile rows are grid y; the shortest tile has 4 rows
 launch_counts = {"fused_stem": 0, "fused_res_block": 0, "fused_downsample": 0}
 
 BN = Tuple[torch.Tensor, torch.Tensor]
+
+
+_derived: Dict[tuple, tuple] = {}
+
+
+def _signature(t: torch.Tensor) -> tuple:
+    # the version counter moves on every in-place write; data_ptr and shape
+    # catch a swapped ``.data``
+    return t._version, t.data_ptr(), tuple(t.shape), t.dtype, t.device
+
+
+def cached(fn: Callable, *tensors: torch.Tensor):
+    """``fn(*tensors)``, computed once for these tensor objects in their
+    current contents and kept while they live.
+
+    A hit needs the very same objects (weak references, not ids that a new
+    tensor could reuse) with unchanged version counters, data pointers and
+    shapes; anything else recomputes, so a model that loads other weights,
+    into new tensors or in place, never gets a stale layout.  Inference-mode
+    tensors have no version counter and are never cached."""
+    if any(t.is_inference() for t in tensors):
+        return fn(*tensors)
+    key = (fn, *map(id, tensors))
+    sig = tuple(map(_signature, tensors))
+    hit = _derived.get(key)
+    if hit is not None and hit[1] == sig and all(r() is t for r, t in zip(hit[0], tensors)):
+        return hit[2]
+    out = fn(*tensors)
+    holder = []
+
+    def drop(_ref):  # a source died: forget the entry, if it is still this one
+        if holder and _derived.get(key) is holder[0]:
+            del _derived[key]
+
+    entry = (tuple(weakref.ref(t, drop) for t in tensors), sig, out)
+    holder.append(entry)
+    _derived[key] = entry
+    return out
 
 
 def fold_bn(gamma, beta, mean, var) -> BN:
@@ -171,7 +212,7 @@ def fused_res_block(x, wa, wb, bna: BN, bnb: BN) -> torch.Tensor:
     _check_res(x, wa, wb, bna, bnb)
     if not x.is_cuda:
         return fused_res_block_plain(x, wa, wb, bna, bnb)
-    return _res_launch(x, *_res_kernel_weights(wa, wb), bna, bnb)
+    return _res_launch(x, *cached(_res_kernel_weights, wa, wb), bna, bnb)
 
 
 def _res_kernel_weights(wa, wb):
@@ -225,12 +266,26 @@ def fused_downsample(x, w, bn: BN) -> torch.Tensor:
     _check_down(x, w, bn)
     if not x.is_cuda:
         return fused_downsample_plain(x, w, bn)
-    return _down_launch(x, _down_kernel_weights(w), bn)
+    return _down_launch(x, cached(_down_kernel_weights, w), bn)
+
+
+DOWN_KC = 64  # input channels of one K slice of the downsample kernel
 
 
 def _down_kernel_weights(w):
-    """OIHW -> (2C, 9*C) bf16 with K index (di*3 + dj)*C + cin."""
-    return w.permute(0, 2, 3, 1).reshape(w.shape[0], -1).to(BF16).contiguous()
+    """OIHW (2C, C, 3, 3) -> (9*C/64, 2C, 64) bf16: K slice s = cb*9 + di*3 +
+    dj holds ``w[:, 64*cb:64*cb + 64, di, dj]``, each 128 output channels one
+    contiguous 16 KB block that the kernel copies into shared memory as it
+    stands.  So it is stored as the kernel reads it, 128-byte swizzled: the
+    16-byte chunk k (8 input channels) of output channel o sits at chunk
+    k ^ (o & 7)."""
+    o, c = w.shape[:2]
+    wk = w.reshape(o, c // DOWN_KC, DOWN_KC, 3, 3).permute(1, 3, 4, 0, 2)
+    wk = wk.reshape(9 * (c // DOWN_KC), o, DOWN_KC // 8, 8)
+    chunk = torch.arange(DOWN_KC // 8, device=w.device)[None, :] ^ \
+        (torch.arange(o, device=w.device)[:, None] & 7)
+    wk = torch.gather(wk, 2, chunk[None, :, :, None].expand(wk.shape[0], -1, -1, 8))
+    return wk.reshape(9 * (c // DOWN_KC), o, DOWN_KC).to(BF16).contiguous()
 
 
 def _down_launch(x, w_k, bn: BN) -> torch.Tensor:
@@ -293,7 +348,7 @@ def fused_stem(x, k3, k2, bn1: BN, bn2: BN) -> torch.Tensor:
     _check_stem(x, k3, k2, bn1, bn2)
     if not x.is_cuda:
         return fused_stem_plain(x, k3, k2, bn1, bn2)
-    return _stem_launch(x, *_stem_kernel_weights(k3, k2), bn1, bn2)
+    return _stem_launch(x, *cached(_stem_kernel_weights, k3, k2), bn1, bn2)
 
 
 def _stem_kernel_weights(k3, k2):

@@ -3,19 +3,24 @@ its plain PyTorch version.
 
 Replaces the TPU kernels ``bayesian_yolov3_tpu/ops/pallas_nms.py:_imgvec_kernel``
 (``greedy_nms_pallas_imgvec``) and ``:_kernel`` (``greedy_nms_pallas_batched``,
-``greedy_nms_pallas``) — one CUDA kernel for both, any candidate count.
-The source is ``csrc/greedy_nms.cu``: one thread block per image runs the
-whole selection loop; what bounds it is the serial chain of ``max_out``
-dependent block-wide argmax steps, not bytes or flops.
+``greedy_nms_pallas``) — one CUDA source for both, any candidate count.
+The source is ``csrc/greedy_nms.cu``: the wrapper sorts the candidates by
+(score desc, index asc); greedy argmax is then a scan in that order, which
+the kernels run chunk by chunk (``CHUNK`` sorted candidates): suppression by
+the boxes kept in earlier chunks and the chunk's upper-triangular IoU
+bitmask spread over all SMs, then one warp scans the chunk's bits.
+``greedy_nms_chunked`` is that algorithm in plain PyTorch, step for step, so
+the CPU tests can hold it against the greedy loop at a small chunk.
 
-Selection rules (both versions, index for index): suppress IoU > thresh
+Selection rules (every version, index for index): suppress IoU > thresh
 (strict); a NaN IoU (zero-area boxes) keeps the candidate alive; ties go to
 the lower index; a -inf score is never picked.  Scores and coordinates must
 not be NaN.
 
-On a CUDA tensor the wrapper launches the kernel or raises; the plain
+On a CUDA tensor the wrapper launches the kernels or raises; the plain
 version runs only for tensors that lie on the CPU (and where a caller asks
-for it by name, to compare).
+for it by name, to compare).  ``launch_count`` counts wrapper calls that
+launched the kernels (one NMS: three kernels per chunk).
 """
 
 from __future__ import annotations
@@ -27,17 +32,22 @@ import torch
 
 from . import _build
 
-launch_count = 0  # kernel launches made by this module's wrapper
+launch_count = 0  # NMS runs launched on the card by this module's wrapper
+CHUNK = 4096  # sorted candidates per chunk: NMS_CHUNK of csrc/greedy_nms.cu
 
 
 def _lib():
     lib = _build.load("greedy_nms")
     fn = lib.greedy_nms_launch
     if not fn.argtypes:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.greedy_nms_smem_limit.restype = ctypes.c_int
+        lib.greedy_nms_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.greedy_nms_scratch_bytes.restype = ctypes.c_size_t
+        lib.greedy_nms_chunk.restype = ctypes.c_int
+        if lib.greedy_nms_chunk() != CHUNK:
+            raise RuntimeError("csrc/greedy_nms.cu and ops/cuda_nms.py disagree on CHUNK")
     return lib
 
 
@@ -91,6 +101,67 @@ def greedy_nms_plain(boxes, scores, max_out: int = 1000,
     return out, count
 
 
+def _sorted(boxes, scores):
+    """Candidates in (score desc, index asc) order: the greedy loop's priority.
+    -> (order (NB, K) int64, boxes, scores), the last two contiguous."""
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+    sboxes = torch.gather(boxes, 1, order[:, :, None].expand(-1, -1, 4)).contiguous()
+    return order, sboxes, torch.gather(scores, 1, order).contiguous()
+
+
+def _iou(a, b):
+    """(n, 4) x (m, 4) -> (n, m) IoU in the plain loop's arithmetic."""
+    area_a = (a[:, 2] - a[:, 0]).clamp(min=0.0) * (a[:, 3] - a[:, 1]).clamp(min=0.0)
+    area_b = (b[:, 2] - b[:, 0]).clamp(min=0.0) * (b[:, 3] - b[:, 1]).clamp(min=0.0)
+    iy0 = torch.maximum(a[:, None, 0], b[None, :, 0])
+    ix0 = torch.maximum(a[:, None, 1], b[None, :, 1])
+    iy1 = torch.minimum(a[:, None, 2], b[None, :, 2])
+    ix1 = torch.minimum(a[:, None, 3], b[None, :, 3])
+    inter = (iy1 - iy0).clamp(min=0.0) * (ix1 - ix0).clamp(min=0.0)
+    return inter / (area_a[:, None] + area_b[None, :] - inter)
+
+
+def greedy_nms_chunked(boxes, scores, max_out: int = 1000, iou_thresh: float = 0.5,
+                       chunk: int = CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' algorithm in plain PyTorch, step for step (the CPU tests
+    run it at a small ``chunk``, so picks cross chunk boundaries).  Per image,
+    per chunk of sorted candidates: (1) suppressed by a box kept in an earlier
+    chunk; (2) the chunk's upper-triangular IoU > thresh mask; (3) the serial
+    scan — kept iff valid and suppressed by neither, stopping at ``max_out``
+    picks or the first -inf.  Same outputs as ``greedy_nms_plain``."""
+    _check(boxes, scores, max_out)
+    nb, k = scores.shape
+    order, sboxes, sscores = _sorted(boxes, scores)
+    out = torch.full((nb, max_out), -1, dtype=torch.int32, device=boxes.device)
+    count = torch.zeros(nb, dtype=torch.int32, device=boxes.device)
+    for b in range(nb):
+        kept = []  # sorted positions
+        done = False
+        for c0 in range(0, k, chunk):
+            if done:
+                break
+            cb = sboxes[b, c0:c0 + chunk]
+            valid = (sscores[b, c0:c0 + chunk] > float("-inf")).tolist()
+            pre = ((_iou(cb, sboxes[b, kept]) > iou_thresh).any(dim=1) if kept
+                   else torch.zeros(len(cb), dtype=torch.bool)).tolist()
+            mask = torch.triu(_iou(cb, cb) > iou_thresh, diagonal=1)
+            removed = torch.zeros(len(cb), dtype=torch.bool)
+            for i in range(len(cb)):
+                if not valid[i]:
+                    done = True
+                    break
+                if pre[i] or bool(removed[i]):
+                    continue
+                kept.append(c0 + i)
+                if len(kept) == max_out:
+                    done = True
+                    break
+                removed |= mask[i]
+        out[b, :len(kept)] = order[b, kept].to(torch.int32)
+        count[b] = len(kept)
+    return out, count
+
+
 def greedy_nms_cuda(boxes, scores, max_out: int = 1000,
                     iou_thresh: float = 0.5) -> Tuple[torch.Tensor, torch.Tensor]:
     """(NB, K, 4) boxes + (NB, K) scores -> (indices (NB, max_out) int32,
@@ -98,23 +169,21 @@ def greedy_nms_cuda(boxes, scores, max_out: int = 1000,
     _check(boxes, scores, max_out)
     if not boxes.is_cuda:
         return greedy_nms_plain(boxes, scores, max_out, iou_thresh)
-    if not (boxes.is_contiguous() and scores.is_contiguous()):
-        raise ValueError("the NMS kernel takes contiguous boxes and scores")
-    if boxes.data_ptr() % 16:
-        raise ValueError("the NMS kernel reads boxes as float4: 16-byte alignment needed")
     global launch_count
     nb, k = scores.shape
+    if nb > 65535:
+        raise ValueError(f"the NMS kernels take at most 65535 images, got {nb}")
     dev = boxes.device
     lib = _lib()
+    order, sboxes, sscores = _sorted(boxes, scores)
     out = torch.full((nb, max_out), -1, dtype=torch.int32, device=dev)
     count = torch.empty(nb, dtype=torch.int32, device=dev)
-    in_smem = k * 20 <= lib.greedy_nms_smem_limit()
-    scratch = None if in_smem else torch.empty((nb, k), dtype=torch.float32, device=dev)
+    scratch = torch.empty(lib.greedy_nms_scratch_bytes(nb, max_out), dtype=torch.uint8,
+                          device=dev)
     with torch.cuda.device(dev):
         rc = lib.greedy_nms_launch(
-            boxes.data_ptr(), scores.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            out.data_ptr(), count.data_ptr(), nb, k, max_out, float(iou_thresh),
+            sboxes.data_ptr(), sscores.data_ptr(), order.data_ptr(), out.data_ptr(),
+            count.data_ptr(), scratch.data_ptr(), nb, k, max_out, float(iou_thresh),
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:

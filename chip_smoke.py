@@ -12,8 +12,12 @@ Phases, each printing one JSON line:
 
 device      card name and power limit (nvidia-smi), torch / CUDA versions
 build       seconds to build the CUDA kernels
+ptxas       registers, spills and static shared memory of the kernels this
+            slice redesigned (fused_downsample, greedy_nms), from nvcc -Xptxas -v
 kernels     each kernel against its plain PyTorch version on the card at the
-            main path's shapes; times by CUDA events
+            main path's shapes; times by CUDA events; NMS also on crafted
+            cases (ties, -inf, NaN IoUs, duplicates, dense clusters whose picks
+            span seven chunks) and on 120 960 boxes wider than the image
 small_ref   the whole pipeline at 64x96 on the card (kernels, cuDNN) against
             the same pipeline on the CPU (plain versions), in float32 and bf16
 main_path   epistemic inference at full width — bayesian, 1024x1920, T=30 —
@@ -28,7 +32,9 @@ main_path_batched
             an exact-NMS retry, and one Detector call on a PNG file
 timing      img/s of each path after a warm-up, a stage breakdown, and for the
             batched paths run()'s wall img/s beside the host loader and the
-            JSON writer, each timed alone
+            JSON writer, each timed alone; the PNG decoder that ran, one frame
+            decoded with rows stored under filter 0, filters 1-4 and Paeth
+            only, and the loader over the frames stored with filters 1-4
 mc_split    the split form on one card: the moments of n shards of one frame's
             T=30 raws summed and finalized, against the one-shot epistemic
             decode kernel, n = 1, 2, 3, 5
@@ -409,7 +415,7 @@ def _nms_equal(name, boxes, scores, max_out=MAX_OUT, thresh=0.5):
           f"greedy_nms[{name}]: counts {got_c.tolist()} != plain {want_c.tolist()}")
     bad = int((got_i != want_i).sum())
     check(bad == 0, f"greedy_nms[{name}]: {bad} indices differ from the plain version")
-    return got_c
+    return got_i, got_c
 
 
 def check_nms(dev):
@@ -421,14 +427,24 @@ def check_nms(dev):
     order = torch.sort(scores_all, dim=1, descending=True, stable=True).indices[:, :PRE_TOP_K]
     boxes_top = torch.gather(boxes_all, 1, order[:, :, None].expand(-1, -1, 4)).contiguous()
     scores_top = torch.gather(scores_all, 1, order).contiguous()
+    # the exact retry's candidates: boxes e^6 times an ECP-sized prior, far
+    # larger than the image, so one pick suppresses nearly all of them and
+    # the scan runs through every chunk
+    centre = torch.rand((1, N_ANCHORS, 2), generator=gen, device=dev)
+    half = (torch.rand((1, N_ANCHORS, 2), generator=gen, device=dev) * 0.3 + 0.02) \
+        * math.exp(6.0) / 2
+    boxes_wide = torch.cat([centre - half, centre + half], dim=2).contiguous()
     cases = {
         "1x8192": (boxes_top[:1].contiguous(), scores_top[:1].contiguous()),
         "1x120960": (boxes_all[:1].contiguous(), scores_all[:1].contiguous()),
         "3x8192": (boxes_top, scores_top),
+        "11x8192": (boxes_top[[0, 1, 2] * 3 + [0, 1]].contiguous(),
+                    scores_top[[0, 1, 2] * 3 + [0, 1]].contiguous()),
+        "1x120960_wide_boxes": (boxes_wide, scores_all[:1].contiguous()),
     }
     per_shape = []
     for name, (b, s) in cases.items():
-        cnt = _nms_equal(name, b, s)
+        _, cnt = _nms_equal(name, b, s)
         ms = event_ms(lambda: cuda_nms.greedy_nms_cuda(b, s, MAX_OUT, 0.5), 5)
         plain_ms = event_ms(lambda: cuda_nms.greedy_nms_plain(b, s, MAX_OUT, 0.5), 1)
         nb, k = s.shape
@@ -437,11 +453,12 @@ def check_nms(dev):
         # a pick costs one IoU (17 flops) + compare against every candidate
         flops = nb * picks * k * 18
         per_shape.append({
-            "shape": [nb, k], "picks": cnt.tolist(), "ms": ms, "plain_ms": plain_ms,
+            "name": name, "shape": [nb, k], "picks": cnt.tolist(), "ms": ms,
+            "plain_ms": plain_ms,
             "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
             else "operations",
-            "serial_steps": picks,
+            "chunks": -(-k // cuda_nms.CHUNK),
         })
 
     # crafted inputs: every selection rule, exactly
@@ -461,12 +478,29 @@ def check_nms(dev):
     dup = b.clone()
     dup[1::2] = dup[::2]
     crafted["duplicate_boxes_tied"] = (dup, s[::2].repeat_interleave(2))
-    crafted_counts = {}
+    # dense clusters, 900 of 30 jittered copies, ordered cluster by cluster:
+    # each cluster's first copy is picked unless an earlier cluster covers it,
+    # picks reach across seven chunks and clusters straddle chunk boundaries
+    n_cl, per = 900, 30
+    centres, _ = _random_candidates(gen, n_cl, dev)
+    crafted["dense_clusters_multichunk"] = (
+        centres.repeat_interleave(per, dim=0)
+        + (torch.rand((n_cl * per, 4), generator=gen, device=dev) - 0.5) * 0.008,
+        (n_cl - torch.arange(n_cl * per, device=dev) // per).float()
+        + torch.rand(n_cl * per, generator=gen, device=dev) * 0.9)
+    crafted_counts, crafted_chunks = {}, {}
     for name, (bb, ss) in crafted.items():
-        cnt = _nms_equal(name, bb[None].contiguous(), ss[None].contiguous())
+        got_i, cnt = _nms_equal(name, bb[None].contiguous(), ss[None].contiguous())
         crafted_counts[name] = int(cnt[0])
+        rank = torch.empty_like(ss, dtype=torch.long)
+        rank[torch.sort(ss, descending=True, stable=True).indices] = torch.arange(
+            len(ss), device=dev)
+        picked = got_i[0, :crafted_counts[name]].long()
+        crafted_chunks[name] = len(set((rank[picked] // cuda_nms.CHUNK).tolist()))
     check(crafted_counts["fewer_than_max_out_odd_k"] < MAX_OUT, "crafted case filled up")
     check(crafted_counts["all_padding"] == 0, "-inf scores were picked")
+    check(crafted_chunks["dense_clusters_multichunk"] >= 3,
+          f"the multi-chunk case picked from {crafted_chunks} chunks")
 
     main = per_shape[0]
     return {
@@ -478,10 +512,12 @@ def check_nms(dev):
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,
-        "ms_exact_retry_120960": per_shape[1]["ms"],
-        "note": "ms/plain_ms/bound_ms at (1, 8192), the certified path; the real "
-                "limit is the serial chain of `serial_steps` dependent argmax steps",
+        "ms_exact_120960": per_shape[1]["ms"],
+        "note": "ms/plain_ms/bound_ms at (1, 8192), the certified path, wrapper (stable "
+                "sort, gathers) included; the kernels scan the sorted candidates in "
+                f"chunks of {cuda_nms.CHUNK}",
         "shapes": per_shape, "crafted_counts": crafted_counts,
+        "crafted_chunks_with_picks": crafted_chunks,
     }
 
 
@@ -627,9 +663,11 @@ def check_downsample(dev, flush):
                          (n_out // (2 * c)) * 2 * 9 * c * 2 * c))
         shapes.append(rec)
     counts = [k for _, k in cases]
+    library_ms = sum(s["library_ms"] * k for s, k in zip(shapes, counts) if k)
+    kernel_only_ms = sum(s["kernel_only_ms"] * k for s, k in zip(shapes, counts) if k)
     return _per_image(
-        "fused_downsample", shapes, counts,
-        library_ms=sum(s["library_ms"] * k for s, k in zip(shapes, counts) if k),
+        "fused_downsample", shapes, counts, library_ms=library_ms,
+        kernel_only_le_library=kernel_only_ms <= library_ms,
         replaces="bayesian_yolov3_tpu/ops/pallas_conv.py:488",
         also_replaces="bayesian_yolov3_tpu/ops/pallas_conv.py:395",
         note="the 2 launches of one 1024x1920 image summed (64->128 at 512x960, 128->256 "
@@ -726,18 +764,21 @@ def seeded_frame(rng, hw):
     return img
 
 
-def write_dataset(path, rng, n, hw):
+def write_records(path, frames, filters=(0,)):
+    """The frames as PNG (rows stored with ``filters``, cycled) in one tfrecord."""
     os.makedirs(path, exist_ok=True)
-    frames = []
     with tfrecord.TFRecordWriter(os.path.join(path, "smoke-00000-of-00001.tfrecord")) as wr:
-        for i in range(n):
-            img = seeded_frame(rng, hw)
-            frames.append(img)
+        for i, img in enumerate(frames):
             wr.write(proto.encode_example({
-                "image/encoded": [pipeline.encode_png(img, level=1)],
+                "image/encoded": [pipeline.encode_png(img, level=1, filters=filters)],
                 "image/filename": [f"frame_{i:04d}.png".encode()],
             }))
-    return os.path.join(path, "smoke-*-of-*.tfrecord"), frames
+    return os.path.join(path, "smoke-*-of-*.tfrecord")
+
+
+def write_dataset(path, rng, n, hw):
+    frames = [seeded_frame(rng, hw) for _ in range(n)]
+    return write_records(path, frames), frames
 
 
 def make_config(tmp, name, img_size, t, pattern, **kw):
@@ -1295,6 +1336,12 @@ def _mc_rank(rank, store, cfg, res_dir, frame0_path, dev):
             dist.destroy_process_group()
 
 
+def _host_s(fn):
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
 def wall_ms(fn, reps):
     """Median host-clock time of ``fn`` in ms, the device drained before and
     after each reading (for collectives that block the host, as gloo's do)."""
@@ -1606,8 +1653,25 @@ def timing_batched(runner, frames, dev, card):
                         tempfile.mkdtemp(dir=os.path.dirname(cfg.out_path)))
     writer_ms = (time.time() - t0) * 1e3 / BATCH
 
+    # the PNG decoder alone, one thread, one frame: rows stored with filter 0
+    # (what encode_png writes by default) and with filters 1-4 in turn, Paeth
+    # and Average included (what libpng's adaptive filtering writes)
+    encoded = {label: pipeline.encode_png(frames[0], level=1, filters=filters)
+               for label, filters in (("filter0", (0,)), ("filters1to4", (1, 2, 3, 4)),
+                                      ("paeth", (4,)))}
+    for label, data in encoded.items():
+        check(np.array_equal(pipeline.decode_png(data), frames[0]), f"PNG {label}: decode")
+    times = {label: [] for label in encoded}
+    for _ in range(9):  # rounds of the three, so drifting host load hits all alike
+        for label, data in encoded.items():
+            times[label].append(_host_s(lambda: pipeline.decode_png(data)))
+    png = {f"decode_ms_{label}": 1e3 * min(t) for label, t in times.items()}
+    png["decode_ratio_filters1to4"] = png["decode_ms_filters1to4"] / png["decode_ms_filter0"]
+    png["decode_ratio_paeth"] = png["decode_ms_paeth"] / png["decode_ms_filter0"]
+
     # run() end to end (warm: kernels built, allocator cache filled), then the
-    # loader alone over the same records with the same threads
+    # loader alone over the same records with the same threads, and over the
+    # same frames stored with filters 1-4
     out_dir = runner.run(out_path=os.path.join(os.path.dirname(cfg.out_path), "timing_"
                                                + os.path.basename(cfg.out_path)))
     check(len(glob.glob(os.path.join(out_dir, "*.json"))) == N_BATCHED_FRAMES,
@@ -1617,6 +1681,13 @@ def timing_batched(runner, frames, dev, card):
     n = sum(b["image"].shape[0] for b in pipeline.TestLoader(cfg, batch_size=BATCH).batches())
     loader_s = time.time() - t0
     check(n == N_BATCHED_FRAMES, f"loader yielded {n} frames")
+    filtered = os.path.join(os.path.dirname(cfg.out_path), "data_filters1to4")
+    pattern = write_records(filtered, frames, filters=(1, 2, 3, 4))
+    cfg_f = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, file_pattern=pattern))
+    t0 = time.time()
+    n_f = sum(b["image"].shape[0] for b in pipeline.TestLoader(cfg_f, batch_size=BATCH).batches())
+    loader_f_s = time.time() - t0
+    check(n_f == N_BATCHED_FRAMES, f"loader yielded {n_f} filtered frames")
     ms_per_batch = sum(batch_ms) / len(batch_ms)
     return {"path": f"batched {cfg.model}", "compute_dtype": cfg.compute_dtype,
             "batch_size": BATCH, "img_per_s": BATCH / (ms_per_batch / 1e3),
@@ -1624,6 +1695,8 @@ def timing_batched(runner, frames, dev, card):
             "exact_retries": retries, **stage,
             "run_img_per_s": run_loop["images"] / run_loop["seconds"], "run_loop": run_loop,
             "loader_ms_per_frame": loader_s * 1e3 / n, "loader_threads": cfg.cpu_thread_cnt,
+            "loader_ms_per_frame_filters1to4": loader_f_s * 1e3 / n_f,
+            "png_decoder": pipeline.png_decoder_name(), **png,
             "writer_ms_per_frame": writer_ms,
             "card": card}
 
@@ -1660,8 +1733,8 @@ def summarize(main_summary, timings, split, mc, mc2, b_summary, b_timings):
             mc2["json_vs_same_split_max_err_over_tolerance"],
         "json_vs_one_rank_paired_share": mc2["json_vs_one_rank_paired_share"],
         "per_rank": [{**_numbers(r), "run_loop": r["loop"]} for r in mc2["per_rank"]]}
-    out["batched"] = [{"path": t["path"], "compute_dtype": t["compute_dtype"], **_numbers(t)}
-                      for t in b_timings]
+    out["batched"] = [{"path": t["path"], "compute_dtype": t["compute_dtype"],
+                       "png_decoder": t["png_decoder"], **_numbers(t)} for t in b_timings]
     return out
 
 
@@ -1683,6 +1756,13 @@ def main():
     for name in libs:
         _build.load(name)
     emit("build", seconds=time.time() - t0, kernels=sorted(libs), flags=_build.NVCC_FLAGS)
+    # registers, spills and static shared memory of the kernels this slice
+    # redesigned; repeated in the summary line, which the end of the output holds
+    ptxas = {name: [ln.split(":", 1)[-1].strip()
+                    for ln in _build.build_logs.get(name, "").splitlines()
+                    if "registers" in ln or "spill" in ln or "entry function" in ln]
+             for name in ("fused_downsample", "greedy_nms")}
+    emit("ptxas", **ptxas)
 
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)  # > 50 MB L2
     kernels = [check_epistemic(dev, flush), check_nms(dev), check_stem(dev, flush),
@@ -1720,8 +1800,8 @@ def main():
     for k in kernels:
         path = {"box_decode": b_launches, **{m: mc_launches for m in MC_KERNELS}}
         k["launches"] = path.get(k["name"], launches)[k["name"]]
-    emit("summary", card=card, **summarize(summary, timings, split, mc_summary, mc2, b_summary,
-                                        b_timings))
+    emit("summary", card=card, ptxas=ptxas,
+         **summarize(summary, timings, split, mc_summary, mc2, b_summary, b_timings))
     emit("done", seconds=time.time() - t_start)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -157,3 +157,52 @@ def test_per_class_nms_equals_jax(rng):
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     assert int(got[2]) == int(want[2])
+
+
+def _clusters(rng, n_clusters, per, jitter=0.004):
+    """Dense clusters: ``per`` jittered copies of each of ``n_clusters`` boxes,
+    scores interleaved across clusters, so every cluster's picks and
+    suppressions reach across the sorted order."""
+    centres = _boxes(rng, n_clusters, 0.15)
+    boxes = np.repeat(centres, per, axis=0) + rng.uniform(-jitter, jitter, (n_clusters * per, 4))
+    return boxes.astype(np.float32), rng.random(n_clusters * per).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", CASE_NAMES + ["dense_clusters"])
+@pytest.mark.parametrize("max_out,thresh", [(40, 0.5), (300, 0.3), (1000, 0.5)])
+def test_chunked_formulation_equals_greedy(rng, name, max_out, thresh):
+    """The kernels' sorted, chunked bitmask scan (``greedy_nms_chunked``) at a
+    chunk of 64, index for index against the plain greedy loop and the JAX
+    package's ``greedy_nms``: ties, -inf padding, zero-area NaN IoUs,
+    duplicates, dense clusters, fewer than max_out survivors.  Exact."""
+    if name == "dense_clusters":
+        boxes, scores = _clusters(rng, 96, 5)
+    else:
+        boxes, scores = _cases(rng)[name]
+    tb, ts = torch.from_numpy(boxes)[None], torch.from_numpy(scores)[None]
+    got_idx, got_cnt = tcn.greedy_nms_chunked(tb, ts, max_out, thresh, chunk=64)
+    plain_idx, plain_cnt = tcn.greedy_nms_plain(tb, ts, max_out, thresh)
+    want_idx, want_cnt = jnms.greedy_nms(jnp.asarray(boxes), jnp.asarray(scores),
+                                         max_out, thresh)
+    np.testing.assert_array_equal(got_idx[0].numpy(), plain_idx[0].numpy())
+    np.testing.assert_array_equal(got_idx[0].numpy(), np.asarray(want_idx))
+    assert int(got_cnt[0]) == int(plain_cnt[0]) == int(want_cnt)
+    if name == "dense_clusters" and max_out > 40:  # picks from at least three chunks
+        order = torch.sort(ts[0], descending=True, stable=True).indices
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(len(order))
+        picked = got_idx[0][:int(got_cnt[0])].long()
+        assert len(set((rank[picked] // 64).tolist())) >= 3
+
+
+def test_chunked_formulation_batched_and_at_every_chunk_size(rng):
+    """Several images at once, and chunks that split the candidates unevenly
+    (1, 7, 64, 100, all K in one): the same picks as the plain loop."""
+    cases = _cases(rng)
+    names = ["random", "tied_scores", "neg_inf_padding", "duplicates_with_ties"]
+    boxes = torch.from_numpy(np.stack([cases[n][0] for n in names]))
+    scores = torch.from_numpy(np.stack([cases[n][1] for n in names]))
+    want_idx, want_cnt = tcn.greedy_nms_plain(boxes, scores, 60, 0.5)
+    for chunk in (1, 7, 64, 100, 256):
+        got_idx, got_cnt = tcn.greedy_nms_chunked(boxes, scores, 60, 0.5, chunk=chunk)
+        assert torch.equal(got_idx, want_idx) and torch.equal(got_cnt, want_cnt), chunk

@@ -389,10 +389,10 @@ def test_png_written_by_pil_decodes(rng):
     assert used - {0}, f"PIL used only filter 0 ({used})"
     np.testing.assert_array_equal(pipeline._decode_png_zlib(data), img)
     np.testing.assert_array_equal(pipeline.decode_png(data), img)
-    with pytest.raises(ValueError, match="unsupported PNG"):
-        rgba = io.BytesIO()
-        Image.fromarray(np.dstack([img, img[..., :1]])).save(rgba, format="PNG")
-        pipeline._decode_png_zlib(rgba.getvalue())
+    # RGBA decodes too, its alpha dropped as PIL's convert("RGB") drops it
+    rgba = io.BytesIO()
+    Image.fromarray(np.dstack([img, img[..., :1]])).save(rgba, format="PNG")
+    np.testing.assert_array_equal(pipeline._decode_png_zlib(rgba.getvalue()), img)
     with pytest.raises(ValueError, match="not a PNG"):
         pipeline._decode_png_zlib(b"JFIF" * 10)
 
