@@ -50,7 +50,7 @@
 // tile's rows (by cp.async or by tensor-map boxes), four-warpgroup tiles, an
 // eight-stage ring of 32-channel slices, bulk-copy stores.
 
-#include "conv_common.cuh"
+#include "hopper_common.cuh"
 
 using namespace fconv;
 
@@ -69,88 +69,6 @@ constexpr int kWBytes = kBN * kKC * 2;    // 16,384 per ring stage
 constexpr int kXOff = 2 * kWBytes;        // the halo tile after the two stages
 constexpr int kBarOff = kXOff + kTilePix * kKC * 2;  // an mbarrier per stage
 constexpr int kSmem = kBarOff + 2 * 8;               // 115,344: two blocks per SM
-
-// 128-byte swizzle: the 16-byte chunk bits 4-6 of a shared address XORed
-// with its bits 7-9, as wgmma reads a SWIZZLE_128B operand
-__device__ __forceinline__ uint32_t swz(uint32_t addr) {
-  return addr ^ (((addr >> 7) & 7u) << 4);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(n));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// wait until at most N of this thread's committed cp.async groups are pending
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// K-major operand, 128-byte rows, 128-byte swizzle, 8-row groups 1024 bytes
-// apart.  The swizzle follows the address bits, so a run may start at any
-// row (base offset 0; measured on the H100 for starts 0, 1, 5, 8, 13, 64).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-
-// one bulk copy of `bytes` into shared memory, completing on `bar`
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
-__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed wgmma groups of this warpgroup are pending;
-// the accumulators are read and written only after it
-template <int N>
-__device__ __forceinline__ void wgmma_wait(float* d) {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pick4(const uint32_t* v, int i) {
-  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
-}
 
 // Input row `ir` (0..kIH-1) of the halo tile, its 64 channels from cb*64:
 // global row 2*y0-1+ir; pixel q of the row is local column t = 2q (q < kNE)
@@ -215,7 +133,7 @@ downsample_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     if (ws & 1023) __trap();  // the copied slices are swizzled for 1024-byte alignment
     mbar_init(bars);
     mbar_init(bars + 8);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbar_init();
   }
   __syncthreads();
   if (tid == 0) bulk_load(ws, slice_src(0), kWBytes, bars);
@@ -227,7 +145,7 @@ downsample_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     const int di = tap_di(i), dj = i % 3;
     mbar_wait(bars + 8 * (i & 1), (i >> 1) & 1);
     cp_wait<1>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // rows visible to wgmma
+    fence_proxy_async();  // rows visible to wgmma
     __syncthreads();  // iteration i's slice and rows have landed
     // A: 64 pixel rows from this tap's first pixel; B: the stage's 128 rows
     const int p0 = (2 * wg + di) * kRowPix + (dj == 1 ? kNE : (dj >> 1));
@@ -235,9 +153,10 @@ downsample_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kKC / 16; ++kk)  // 16 channels = 32 bytes a step
-      wgmma_m64n128k16(acc, smem_desc(a0 + kk * 32), smem_desc(b0 + kk * 32));
+      wgmma<kBN>(acc, smem_desc(a0 + kk * 32), smem_desc(b0 + kk * 32), 1);
     wgmma_commit();
-    wgmma_wait<1>(acc);  // this warpgroup's wgmma of iteration i-1 has retired
+    wgmma_wait<1>();  // this warpgroup's wgmma of iteration i-1 has retired
+    acc_fence<64>(acc);
     __syncthreads();     // both warpgroups': its stage and rows are free
     if (tid == 0 && i + 1 < S)
       bulk_load(ws + ((i + 1) & 1) * kWBytes, slice_src(i + 1), kWBytes, bars + 8 * ((i + 1) & 1));
@@ -259,7 +178,8 @@ downsample_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                  true);
     cp_commit();
   }
-  wgmma_wait<0>(acc);
+  wgmma_wait<0>();
+  acc_fence<64>(acc);
   // scale and bias (issued at S-3) were waited at the top of iteration S-1
   const float* sb_f = reinterpret_cast<const float*>(smem + kXOff);
 
@@ -286,17 +206,9 @@ downsample_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
         const float* a = acc + (grp * 4 + t) * 4 + 2 * half;
         mine[t] = pack2(bn_leaky(a[0], sc[t][0], bi[t][0]), bn_leaky(a[1], sc[t][1], bi[t][1]));
       }
-      // 4x4 transpose inside the quad: lane q gathers channel tile 4*grp + q,
-      // its word p from lane p (channels 8q + 2p, +1 of the group)
-      uint32_t got[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        got[r] = __shfl_sync(0xffffffffu, pick4(mine, (q - r) & 3), (lane & ~3) | ((q + r) & 3));
-      uint4 v;  // got[r] came from lane (q + r) & 3
-      v.x = pick4(got, (0 - q) & 3);
-      v.y = pick4(got, (1 - q) & 3);
-      v.z = pick4(got, (2 - q) & 3);
-      v.w = pick4(got, (3 - q) & 3);
+      // lane q gathers channel tile 4*grp + q: channels 8q .. 8q+7 of the group
+      quad_transpose(mine, lane);
+      const uint4 v = make_uint4(mine[0], mine[1], mine[2], mine[3]);
       const int gx = x0 + 16 * w4 + g + half * 8;
       if (gy < HO && gx < WO)
         *reinterpret_cast<uint4*>(out_img + ((size_t)gy * WO + gx) * CO + chg + q * 8) = v;
@@ -307,17 +219,9 @@ downsample_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 template <int C>
 int launch(const void* x, const void* w, const float* scale, const float* bias,
            void* out, int N, int H, int W, cudaStream_t stream) {
-  static bool attributes_set = false;  // once per process and C: saves host time
-  if (!attributes_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        downsample_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(downsample_kernel<C>,
-                                 cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 (int)cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return (int)err;
-    attributes_set = true;
-  }
+  static bool done[kMaxDevices] = {};
+  const cudaError_t err = request_smem(downsample_kernel<C>, kSmem, done);
+  if (err != cudaSuccess) return (int)err;
   const int HO = (H - 1) / 2 + 1, WO = (W - 1) / 2 + 1;
   dim3 grid(((WO + kTW - 1) / kTW) * (2 * C / kBN), (HO + kTH - 1) / kTH, N);
   downsample_kernel<C><<<grid, kDThreads, kSmem, stream>>>(

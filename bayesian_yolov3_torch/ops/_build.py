@@ -73,18 +73,21 @@ def _target(name: str, source: str = None, flags=NVCC_FLAGS) -> str:
     return os.path.join(build_dir(), f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def build_all(verbose: bool = False) -> Dict[str, str]:
-    """Compile every kernel source that has no library yet, all ``nvcc``
-    processes started together.  Returns {kernel name: library path}."""
+def build_all(verbose: bool = False, names=None, defines=()) -> Dict[str, str]:
+    """Compile every kernel source (or those in ``names``) that has no
+    library yet, all ``nvcc`` processes started together; ``defines`` adds
+    ``-D`` flags (a measurement build, named apart by the flags' hash).
+    Returns {kernel name: library path}."""
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
     with _lock:
         os.makedirs(build_dir(), exist_ok=True)
-        targets = {name: _target(name) for name in kernel_names()}
+        targets = {name: _target(name, flags=flags) for name in names or kernel_names()}
         procs = []
         for name, out in targets.items():
             if os.path.exists(out):
                 continue
             tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS]
+            cmd = [_nvcc(), *flags]
             if verbose:
                 cmd += ["-Xptxas", "-v"]
             cmd += ["-o", tmp, os.path.join(CSRC_DIR, name + ".cu")]
@@ -103,13 +106,15 @@ def build_all(verbose: bool = False) -> Dict[str, str]:
         return targets
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _libs.get(name)
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed (with
+    ``defines``: that build alone)."""
+    key = "+".join((name, *defines))
+    lib = _libs.get(key)
     if lib is None:
-        path = build_all()[name]
+        path = (build_all(names=[name], defines=defines) if defines else build_all())[name]
         with _lock:
-            lib = _libs.setdefault(name, ctypes.CDLL(path))
+            lib = _libs.setdefault(key, ctypes.CDLL(path))
     return lib
 
 

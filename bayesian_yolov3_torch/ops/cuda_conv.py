@@ -49,7 +49,10 @@ from .common import BN_EPS, LEAKY_ALPHA, _true_float32
 
 BF16 = torch.bfloat16
 MAX_IMAGES = 65535  # the image batch is the kernels' grid z
-MAX_ROWS = 4 * 65535  # tile rows are grid y; the shortest tile has 4 rows
+MAX_ROWS = 4 * 65535  # the downsample's tile rows are grid y; its tile reads 4 rows
+# output tiles (rows, columns) of the persistent kernels, which walk the tiles
+# (image, row tile, column tile) of a batch in steps of their grid
+STEM_TILE, RES_TILE = (2, 64), (2, 62)
 
 # kernel launches made by this module's wrappers, by kernel
 launch_counts = {"fused_stem": 0, "fused_res_block": 0, "fused_downsample": 0}
@@ -142,15 +145,28 @@ def _contiguous_or_raise(name: str, x: torch.Tensor) -> None:
         raise ValueError(f"the {name} kernel reads 16 bytes at a time: alignment needed")
 
 
-def _lib(name: str, head: list, n_int: int):
+def _lib(name: str, head: list, n_int: int, defines=()):
     """The launch function of ``csrc/<name>.cu``, typed: ``head`` (pointers
     and, for the stem, strides), then ``n_int`` ints, then the stream."""
-    lib = _build.load(name)
+    lib = _build.load(name, defines)
     fn = getattr(lib, name + "_launch")
     if not fn.argtypes:
         fn.argtypes = head + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _swizzled(wk: torch.Tensor) -> torch.Tensor:
+    """(..., rows, 64) -> the same shape in bf16, in the 128-byte swizzle of
+    the kernels' shared memory: the 16-byte chunk k (8 values) of row o sits
+    at chunk k ^ (o & 7).  Every piece of a kernel weight layout starts at a
+    multiple of 8 rows, so the rows here count from the piece's first."""
+    shape, rows = wk.shape, wk.shape[-2]
+    chunk = torch.arange(8, device=wk.device)[None, :] ^ \
+        (torch.arange(rows, device=wk.device)[:, None] & 7)
+    wk = wk.reshape(-1, rows, 8, 8)
+    wk = torch.gather(wk, 2, chunk[None, :, :, None].expand(wk.shape[0], -1, -1, 8))
+    return wk.reshape(shape).to(BF16)
 
 
 def _launched(name: str, rc: int) -> None:
@@ -212,28 +228,45 @@ def fused_res_block(x, wa, wb, bna: BN, bnb: BN) -> torch.Tensor:
     _check_res(x, wa, wb, bna, bnb)
     if not x.is_cuda:
         return fused_res_block_plain(x, wa, wb, bna, bnb)
-    return _res_launch(x, *cached(_res_kernel_weights, wa, wb), bna, bnb)
+    return _res_launch(x, cached(_res_kernel_weights, wa, wb),
+                       cached(_bn_vector, *bna, *bnb))
 
 
 def _res_kernel_weights(wa, wb):
-    """OIHW -> the kernel's (cout, K) bf16 layouts: wa (C/2, C); wb
-    (C, 9*C/2) with K index (di*3 + dj)*C/2 + cin."""
+    """OIHW -> the kernel's weight pieces, flat bf16, each piece the
+    swizzled shared-memory image of one bulk copy (``_swizzled``):
+
+    * ``C/64`` pieces of wa: piece s is (C/2 t channels, 64 input channels
+      64s ..);
+    * then, for each block h of ``min(C, 128)`` output channels and each
+      64-wide K slice s of the 3x3 (K index ``(di*3 + dj)*C/2 + c``, zero
+      past ``9*C/2``), one piece (those channels, the slice's 64 K values),
+      in the order (h, s)."""
     c = wb.shape[0]
-    return (wa.reshape(c // 2, c).to(BF16).contiguous(),
-            wb.permute(0, 2, 3, 1).reshape(c, 9 * (c // 2)).to(BF16).contiguous())
+    cm, rb = c // 2, min(c, 128)
+    nks = -(-9 * cm // 64)
+    pa = wa.reshape(cm, c // 64, 64).permute(1, 0, 2)
+    kb = F.pad(wb.permute(0, 2, 3, 1).reshape(c, 9 * cm), (0, 64 * nks - 9 * cm))
+    pb = kb.reshape(c // rb, rb, nks, 64).permute(0, 2, 1, 3).reshape(-1, rb, 64)
+    return torch.cat([_swizzled(pa).flatten(), _swizzled(pb).flatten()]).contiguous()
 
 
-def _res_launch(x, wa_k, wb_k, bna: BN, bnb: BN) -> torch.Tensor:
+def _bn_vector(*vs: torch.Tensor) -> torch.Tensor:
+    """Folded BN vectors, one float32 tensor as the kernels read them."""
+    return torch.cat(vs).to(torch.float32).contiguous()
+
+
+def _res_launch(x, w_k, bn_k, defines=()) -> torch.Tensor:
+    """The kernel on the cached weight pieces and BN vector
+    ``[scale_a, bias_a, scale_b, bias_b]``; ``defines``: a measurement build
+    of the kernel (``_build.load``)."""
     _contiguous_or_raise("fused_res_block", x)
     n, h, w, c = x.shape
-    sa, ba = (v.contiguous() for v in bna)
-    sb, bb = (v.contiguous() for v in bnb)
     out = torch.empty_like(x)
-    fn = _lib("fused_res_block", [ctypes.c_void_p] * 8, 4)
+    fn = _lib("fused_res_block", [ctypes.c_void_p] * 4, 4, defines)
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), wa_k.data_ptr(), wb_k.data_ptr(), sa.data_ptr(),
-                ba.data_ptr(), sb.data_ptr(), bb.data_ptr(), out.data_ptr(),
-                n, h, w, c, torch.cuda.current_stream().cuda_stream)
+        rc = fn(x.data_ptr(), w_k.data_ptr(), bn_k.data_ptr(), out.data_ptr(), n, h, w, c,
+                torch.cuda.current_stream().cuda_stream)
     _launched("fused_res_block", rc)
     return out
 
@@ -281,11 +314,7 @@ def _down_kernel_weights(w):
     k ^ (o & 7)."""
     o, c = w.shape[:2]
     wk = w.reshape(o, c // DOWN_KC, DOWN_KC, 3, 3).permute(1, 3, 4, 0, 2)
-    wk = wk.reshape(9 * (c // DOWN_KC), o, DOWN_KC // 8, 8)
-    chunk = torch.arange(DOWN_KC // 8, device=w.device)[None, :] ^ \
-        (torch.arange(o, device=w.device)[:, None] & 7)
-    wk = torch.gather(wk, 2, chunk[None, :, :, None].expand(wk.shape[0], -1, -1, 8))
-    return wk.reshape(9 * (c // DOWN_KC), o, DOWN_KC).to(BF16).contiguous()
+    return _swizzled(wk.reshape(9 * (c // DOWN_KC), o, DOWN_KC)).contiguous()
 
 
 def _down_launch(x, w_k, bn: BN) -> torch.Tensor:
@@ -348,29 +377,48 @@ def fused_stem(x, k3, k2, bn1: BN, bn2: BN) -> torch.Tensor:
     _check_stem(x, k3, k2, bn1, bn2)
     if not x.is_cuda:
         return fused_stem_plain(x, k3, k2, bn1, bn2)
-    return _stem_launch(x, *cached(_stem_kernel_weights, k3, k2), bn1, bn2)
+    return _stem_launch(x, cached(_stem_kernel_weights, k3, k2),
+                        cached(_bn_vector, *bn1, *bn2))
 
 
 def _stem_kernel_weights(k3, k2):
-    """OIHW -> w1 (128, 112) bf16 with K index (di*3 + dj)*12 + c, zero-padded
-    from 108 to whole 16-steps; w2 (64, 512) with K index (a*2 + b)*128 + c."""
-    w1_k = F.pad(k3.permute(0, 2, 3, 1).reshape(STEM_C1, 9 * STEM_CIN), (0, 4))
-    w2_k = k2.permute(0, 2, 3, 1).reshape(STEM_C2, 4 * STEM_C1)
-    return w1_k.to(BF16).contiguous(), w2_k.to(BF16).contiguous()
+    """OIHW -> both weights as the kernel's shared memory holds them, one
+    flat bf16 tensor (one bulk copy), each piece swizzled (``_swizzled``):
+    w1 as 2 K planes x 128 output channels x 64, K index ``(di*3 + dj)*12 +
+    c`` zero-padded from 108 to 128; then w2 as 8 slices (tap ``a*2 + b``,
+    t1 channel plane) x 64 output channels x 64 t1 channels."""
+    w1 = F.pad(k3.permute(0, 2, 3, 1).reshape(STEM_C1, 9 * STEM_CIN), (0, 128 - 9 * STEM_CIN))
+    w1 = w1.reshape(STEM_C1, 2, 64).permute(1, 0, 2)
+    w2 = k2.permute(2, 3, 0, 1).reshape(4, STEM_C2, 2, 64).permute(0, 2, 1, 3)
+    return torch.cat([_swizzled(w1).flatten(), _swizzled(w2.reshape(8, STEM_C2, 64)).flatten()])
 
 
-def _stem_launch(x, w1_k, w2_k, bn1: BN, bn2: BN) -> torch.Tensor:
+def _stem_mode(x) -> int:
+    """How the kernel reads x, from its strides (elements) and alignment:
+    1 = pixels of 12 contiguous channels, 8-byte loads; 2 = channel planes
+    with contiguous rows (the packed planes' view), 4-byte loads; 0 = any
+    other strides, element by element."""
+    sn, sh, sw, sc = x.stride()
+    p = x.data_ptr()
+    if sc == 1 and sw == STEM_CIN and p % 8 == 0 and sh % 4 == 0 and sn % 4 == 0:
+        return 1
+    if sw == 1 and p % 4 == 0 and sh % 2 == 0 and sc % 2 == 0 and sn % 2 == 0:
+        return 2
+    return 0
+
+
+def _stem_launch(x, w_k, bn_k, defines=()) -> torch.Tensor:
+    """The kernel on the cached weights and BN vector ``[scale1, bias1,
+    scale2, bias2]``; ``defines``: a measurement build of the kernel
+    (``_build.load``)."""
     if min(x.stride()) < 0:
         raise ValueError("fused_stem: negative strides")
     n, h2, w2, _ = x.shape
-    s1, b1 = (v.contiguous() for v in bn1)
-    s2, b2 = (v.contiguous() for v in bn2)
     out = torch.empty((n, h2, w2, STEM_C2), dtype=BF16, device=x.device)
     fn = _lib("fused_stem",
-              [ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 7, 3)
+              [ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 3, 4, defines)
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), *x.stride(), w1_k.data_ptr(), w2_k.data_ptr(),
-                s1.data_ptr(), b1.data_ptr(), s2.data_ptr(), b2.data_ptr(),
-                out.data_ptr(), n, h2, w2, torch.cuda.current_stream().cuda_stream)
+        rc = fn(x.data_ptr(), *x.stride(), w_k.data_ptr(), bn_k.data_ptr(), out.data_ptr(),
+                n, h2, w2, _stem_mode(x), torch.cuda.current_stream().cuda_stream)
     _launched("fused_stem", rc)
     return out
