@@ -100,26 +100,36 @@ __device__ __forceinline__ float det4(const float m[4][4]) {
 //   [20+C]     sum softmax entropy
 // epistemic_decode.cu sums all T samples and finalizes in one pass;
 // epistemic_moments.cu sums a shard of them, and epistemic_finalize.cu
-// finalizes the all-reduced sums — with these same two functions.
+// finalizes the all-reduced sums — with these same functions.
 // ---------------------------------------------------------------------------
 
-// Adds one sample of one anchor to s.  xt points at channel 0 of the anchor's
-// sample; channel k lies at xt[k * ch_stride] (loc 0-3, log_loc_var 4-7,
-// obj 8, cls 10..10+C; the stddev channels are not read).
+// The 9+C channels of one sample of one anchor that the sums read, into v:
+// xt points at channel 0 of the anchor's sample, channel k lies at
+// xt[k * ch_stride] (loc 0-3, log_loc_var 4-7, obj 8, cls 10..10+C; the
+// stddev channels are not read).  v = [loc x4 | log_loc_var x4 | obj | cls x C].
 template <int C>
-__device__ __forceinline__ void add_sample_moments(const float* __restrict__ xt,
-                                                   size_t ch_stride,
+__device__ __forceinline__ void load_sample(const float* __restrict__ xt, size_t ch_stride,
+                                            float (&v)[9 + C]) {
+#pragma unroll
+  for (int j = 0; j < 9; ++j) v[j] = xt[j * ch_stride];
+#pragma unroll
+  for (int c = 0; c < C; ++c) v[9 + c] = xt[(10 + c) * ch_stride];
+}
+
+// Adds one loaded sample v (load_sample) of one anchor to s.
+template <int C>
+__device__ __forceinline__ void add_sample_moments(const float (&v)[9 + C],
                                                    float (&s)[21 + C]) {
   float l[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) l[j] = xt[j * ch_stride];
+  for (int j = 0; j < 4; ++j) l[j] = v[j];
   float lv[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) lv[j] = xt[(4 + j) * ch_stride];
-  const float lo = xt[8 * ch_stride];
+  for (int j = 0; j < 4; ++j) lv[j] = v[4 + j];
+  const float lo = v[8];
   float p[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) p[c] = xt[(10 + c) * ch_stride];
+  for (int c = 0; c < C; ++c) p[c] = v[9 + c];
 
 #pragma unroll
   for (int j = 0; j < 4; ++j) s[j] += l[j];
@@ -141,6 +151,94 @@ __device__ __forceinline__ void add_sample_moments(const float* __restrict__ xt,
     pe -= xlogx(p[c]);
   }
   s[20 + C] += pe;
+}
+
+// ---------------------------------------------------------------------------
+// The sample split of epistemic_decode.cu and epistemic_moments.cu: which
+// thread sums which samples of an anchor, and the fixed tree that combines
+// the partial sums.  Both kernels reduce through reduce_anchor_samples, so
+// at the same T and G they add in the same order, bit for bit: the moments
+// at T_local = T, finalized, are the rows of the one-shot decode.  G is
+// chosen by the wrappers (ops/cuda_epistemic.py:frame_parts) from T and
+// one frame's anchor rows alone, never from the batch, the device or the
+// schedule; no atomics.
+//
+// Block: SPLIT_WARPS warps; warp wi is part g = wi % G of anchor warp
+// wi / G (G a power of two, at most SPLIT_WARPS), and lane l of anchor warp
+// a holds the block's anchor 32 a + l: a warp reads 32 consecutive anchors
+// of one channel and one sample (128 bytes), a block covers 256 / G anchors.
+// Part g sums samples [g T / G, (g+1) T / G) in increasing t (an empty part
+// when G > T), the loads of sample t+1 issued before the math of sample t.
+// Combine: for d = 1, 2, 4, .., G/2, part g with g % 2d == 0 becomes
+// p_g + p_{g+d}, p_{g+d} passed through one of SPLIT_WARPS / 2 slots of
+// 32 x M floats in shared memory; part 0 ends with the anchor's sums.
+// ---------------------------------------------------------------------------
+#define SPLIT_WARPS 8
+#define SPLIT_THREADS (32 * SPLIT_WARPS)
+// blocks an SM holds (at most 85 registers a thread): the 360 blocks of the
+// finest ECP scale at G = 1 then run in one wave on 132 SMs
+#define SPLIT_MIN_BLOCKS 3
+
+__host__ __device__ __forceinline__ bool split_parts_ok(int G) {
+  return G >= 1 && G <= SPLIT_WARPS && (G & (G - 1)) == 0;
+}
+
+// The anchor (within the block) of this thread, and whether it holds part 0.
+__device__ __forceinline__ int split_anchor(int G) {
+  return (int)(threadIdx.x >> 5) / G * 32 + (int)(threadIdx.x & 31);
+}
+__device__ __forceinline__ bool split_holds_sum(int G) {
+  return ((threadIdx.x >> 5) & (G - 1)) == 0;
+}
+
+// The M = 21+C moment sums of this thread's anchor over its T samples: xa
+// points at channel 0, sample 0 of the anchor (sample t, channel k at
+// xa[(k T + t) total]); valid is false past the ragged edge (no loads, zero
+// sums).  Every thread of the block calls it (it synchronizes when G > 1).
+// buf: SPLIT_THREADS / 2 * (21+C) floats of shared memory.  On return
+// the threads of part 0 (split_holds_sum) hold the anchor's sums in s, and
+// buf is free.
+template <int C>
+__device__ __forceinline__ void reduce_anchor_samples(const float* __restrict__ xa, bool valid,
+                                                      int T, size_t total, int G,
+                                                      float* __restrict__ buf,
+                                                      float (&s)[21 + C]) {
+  constexpr int M = 21 + C;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = warp & (G - 1);
+  const int a = warp / G;
+#pragma unroll
+  for (int k = 0; k < M; ++k) s[k] = 0.f;
+  const int t0 = g * T / G;
+  const int t1 = (g + 1) * T / G;
+  if (valid && t0 < t1) {
+    const size_t ch_stride = (size_t)T * total;
+    float v[9 + C];
+    load_sample<C>(xa + (size_t)t0 * total, ch_stride, v);
+    for (int t = t0 + 1; t < t1; ++t) {
+      float nv[9 + C];
+      load_sample<C>(xa + (size_t)t * total, ch_stride, nv);  // in flight during v's math
+      add_sample_moments<C>(v, s);
+#pragma unroll
+      for (int j = 0; j < 9 + C; ++j) v[j] = nv[j];
+    }
+    add_sample_moments<C>(v, s);
+  }
+  for (int d = 1; d < G; d *= 2) {
+    // the slot of the pair (g & ~(2d-1), + d) of anchor warp a
+    float* slot = buf + (size_t)(a * (G / (2 * d)) + g / (2 * d)) * (M * 32) + lane;
+    if ((g & (2 * d - 1)) == d) {
+#pragma unroll
+      for (int k = 0; k < M; ++k) slot[k * 32] = s[k];
+    }
+    __syncthreads();
+    if ((g & (2 * d - 1)) == 0) {
+#pragma unroll
+      for (int k = 0; k < M; ++k) s[k] = s[k] + slot[k * 32];
+    }
+    __syncthreads();
+  }
 }
 
 // Moment sums over T samples -> the anchor's (21+C)-wide epistemic row r:

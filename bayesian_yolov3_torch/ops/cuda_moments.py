@@ -10,8 +10,11 @@ are all-reduced (``parallel/epistemic.py``), and the global sums become
 the (21+C)-wide rows of the one-shot epistemic decode
 (``csrc/epistemic_finalize.cu``).  Both kernels share the per-sample sums
 and the row finalization with ``csrc/epistemic_decode.cu``
-(``csrc/decode_common.cuh``), so the split form differs from the one-shot
-kernel only in the order of the sums.  Both are bound by bytes.
+(``csrc/decode_common.cuh``), and the moments kernel splits and combines
+each anchor's samples as the one-shot kernel does (``reduce_anchor_samples``,
+G from ``cuda_epistemic.frame_parts``): at T_local = T the split form of a
+frame gives the one-shot kernel's rows bit for bit; over several ranks it
+differs only in the order of the sums.  Both are bound by bytes.
 
 Moment row layout, M = 21+C rows per prior, anchors minor (the JAX
 package's order exactly, since the all-reduce adds it across ranks):
@@ -36,12 +39,13 @@ import ctypes
 import torch
 
 from . import _build, decode
+from .cuda_epistemic import check_split_warps, frame_parts
 
 MAX_CLASSES = 8  # MOM_MAX_C / FIN_MAX_C of the two sources
 
 TRIU = [(i, j) for i in range(4) for j in range(i, 4)]
 
-# kernel launches made by this module's wrappers, by kernel
+# kernel launches made by this module, by kernel
 launch_counts = {"epistemic_moments": 0, "epistemic_finalize": 0}
 
 
@@ -49,9 +53,10 @@ def _lib(name):
     lib = _build.load(name)
     fn = getattr(lib, f"{name}_launch")
     if not fn.argtypes:
-        if name == "epistemic_moments":  # x, out, B, T, total, C, stream
+        if name == "epistemic_moments":  # x, out, B, T, total, C, G, stream
+            check_split_warps(lib, name)
             fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                           + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+                           + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         else:  # m, pri, out, B, n_imgs, h, w, T, C, layer_id, stream
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -125,12 +130,21 @@ def epistemic_moments_cf(raw_cf, *, cls_cnt: int, n_priors: int = 3) -> torch.Te
         return epistemic_moments_plain(raw_cf, cls_cnt=cls_cnt, n_priors=n_priors)
     if not raw_cf.is_contiguous():
         raise ValueError("the epistemic moments kernel takes a contiguous raw_cf")
+    # the anchor axis is one frame on the mc path: G as the decode takes it
+    # for that frame
+    _, t_local, total = raw_cf.shape
+    return _moments_launch(raw_cf, cls_cnt, n_priors, frame_parts(t_local, n_priors, 1, total))
+
+
+def _moments_launch(raw_cf, cls_cnt, n_priors, parts):
+    """The kernel with each anchor's samples split over ``parts`` warps (the
+    wrapper passes ``frame_parts``; a measurement may pass another)."""
     _, t_local, total = raw_cf.shape
     out = torch.empty((n_priors, 21 + cls_cnt, total), dtype=torch.float32,
                       device=raw_cf.device)
     with torch.cuda.device(raw_cf.device):
         rc = _lib("epistemic_moments")(
-            raw_cf.data_ptr(), out.data_ptr(), n_priors, t_local, total, cls_cnt,
+            raw_cf.data_ptr(), out.data_ptr(), n_priors, t_local, total, cls_cnt, parts,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"epistemic_moments kernel launch failed (cudaError {rc})")

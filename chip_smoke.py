@@ -15,11 +15,16 @@ device      card name and power limit (nvidia-smi), torch / CUDA versions
 build       seconds to build the CUDA kernels
 ptxas       registers, spills, static shared memory and warnings of the
             kernels redesigned for Hopper (fused_stem, fused_res_block,
-            fused_downsample, greedy_nms), from nvcc -Xptxas -v
+            fused_downsample, greedy_nms, epistemic_decode, epistemic_moments),
+            from nvcc -Xptxas -v
 kernels     each kernel against its plain PyTorch version on the card at the
             main path's shapes; times by CUDA events; NMS also on crafted
             cases (ties, -inf, NaN IoUs, duplicates, dense clusters whose picks
-            span seven chunks) and on 120 960 boxes wider than the image
+            span seven chunks) and on 120 960 boxes wider than the image; the
+            epistemic decode and moments at T = 1, 7, 15, 29, 30, 50 and
+            ragged grids, a second launch equal to the first, a batch of
+            images equal to each image decoded alone, the moments finalized
+            equal bit for bit to the decode
 small_ref   the whole pipeline at 64x96 on the card (kernels, cuDNN) against
             the same pipeline on the CPU (plain versions), in float32 and bf16
 main_path   epistemic inference at full width — bayesian, 1024x1920, T=30 —
@@ -39,7 +44,7 @@ timing      img/s of each path after a warm-up, a stage breakdown, and for the
             only, and the loader over the frames stored with filters 1-4
 mc_split    the split form on one card: the moments of n shards of one frame's
             T=30 raws summed and finalized, against the one-shot epistemic
-            decode kernel, n = 1, 2, 3, 5
+            decode kernel, n = 1 (bit for bit), 2, 3, 5
 main_path_mc
             the fused mc-sharded pipeline (parallel/epistemic.py) over a
             one-rank NCCL group at 1024x1920, T=30, fixed masks, bf16 and
@@ -130,15 +135,24 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-def event_ms(fn, reps, flush=None):
+# GPU clock cycles of a spin queued before the start event of a `device`
+# reading (about 0.15 ms): longer than the host takes to enqueue one wrapper
+# call, so the reading holds the kernel's time on the card alone
+SPIN_CYCLES = 300_000
+
+
+def event_ms(fn, reps, flush=None, device=False):
     """Median time of ``fn`` in ms by CUDA events, one launch per reading;
     ``flush`` (a tensor larger than L2) is overwritten between readings so
     each launch finds the cache cold, as after the producing matmul of a
-    155 MB tensor."""
+    155 MB tensor.  ``device``: the card spins before the start event while
+    the host enqueues ``fn``, so the host's launch latency drops out."""
     times = []
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+        if device:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -154,68 +168,117 @@ def event_ms(fn, reps, flush=None):
 # --------------------------------------------------------------------------
 
 
+# the decode's checked shapes (n_imgs, h, w, T): the main path's three
+# scales at T=30 first (timed), two and four images in one launch (four
+# frames of 32x60 would fill the card with fewer parts than one), every sample count
+# the split of csrc/decode_common.cuh must cover at each scale (G = 1 .. 8
+# parts, an empty part at T=7), and ragged grids
+# the part counts the two kernels take: the powers of two up to SPLIT_WARPS
+PARTS = tuple(1 << k for k in range(cuda_epistemic.SPLIT_WARPS.bit_length()))
+EPI_CASES = ([(1, h, w, T) for h, w in SCALES] + [(2, 32, 60, T), (4, 32, 60, T)]
+             + [(1, h, w, t) for t in (1, 7, 15, 29, 50) for h, w in SCALES]
+             + [(1, 5, 7, T), (3, 5, 7, 7)])
+
+
+def _decode_bytes(t, nb, h, w, c):
+    """The bytes the epistemic decode must move: the 9+C channels it reads of
+    every sample (not the stddev channels), the rows, the priors."""
+    return (3 * (9 + c) * t * nb * h * w + nb * 3 * h * w * (21 + c) + 3 * 2) * 4
+
+
 def check_epistemic(dev, flush):
+    """Kernel against plain version at EPI_CASES; a second launch on the same
+    input equal to the first; times at the main path's shapes, each launch
+    alone after an L2 flush and the three launches of an image back to back."""
     gen = torch.Generator(device=dev).manual_seed(0)
     priors = torch.tensor([[0.3, 0.1], [0.15, 0.05], [0.08, 0.02]], device=dev)
-    shapes = [(1, h, w) for h, w in SCALES] + [(2, 32, 60)]
-    per_shape = []
-    for layer_id, (nb, h, w) in enumerate(shapes):
-        raw = torch.randn((3 * 2 * (5 + C), T, nb * h * w), generator=gen, device=dev)
-        kw = dict(n_imgs=nb, h=h, w=w, cls_cnt=C, layer_id=layer_id % 3)
+    per_shape, main = [], []
+    for k, (nb, h, w, t) in enumerate(EPI_CASES):
+        raw = torch.randn((3 * 2 * (5 + C), t, nb * h * w), generator=gen, device=dev)
+        kw = dict(n_imgs=nb, h=h, w=w, cls_cnt=C, layer_id=k % 3)
+        name = f"epistemic_decode(T={t}, {(nb, h, w)})"
         got = cuda_epistemic.fused_epistemic_decode_cf_batched(raw, priors, **kw)
+        again = cuda_epistemic.fused_epistemic_decode_cf_batched(raw, priors, **kw)
         torch.cuda.synchronize()
         want = cuda_epistemic.epistemic_decode_plain(raw, priors, **kw)
         torch.cuda.synchronize()
-        check(got.shape == want.shape == (nb, 3 * h * w, 21 + C), f"shape {got.shape}")
-        check(bool(torch.isfinite(got).all()), "epistemic_decode: non-finite output")
+        check(got.shape == want.shape == (nb, 3 * h * w, 21 + C), f"{name}: shape {got.shape}")
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        check(torch.equal(got, again), f"{name}: a second launch differs from the first")
+        for i in range(nb if nb > 1 else 0):  # a frame's rows do not depend on its batch
+            alone = cuda_epistemic.fused_epistemic_decode_cf_batched(
+                raw[:, :, i * h * w:(i + 1) * h * w].contiguous(), priors, **{**kw, "n_imgs": 1})
+            check(torch.equal(got[i], alone[0]), f"{name}: image {i} differs from its decode alone")
         for (lo, hi), rtol, atol in EPI_TOL:
             ok = torch.allclose(got[..., lo:hi], want[..., lo:hi], rtol=rtol, atol=atol)
-            check(ok, f"epistemic_decode disagrees with its plain version at "
-                      f"{(nb, h, w)}, columns {lo}:{hi} (rtol {rtol}, atol {atol}): max abs "
+            check(ok, f"{name} disagrees with its plain version, columns {lo}:{hi} (rtol "
+                      f"{rtol}, atol {atol}): max abs "
                       f"{float((got[..., lo:hi] - want[..., lo:hi]).abs().max())}")
-        ms = event_ms(lambda: cuda_epistemic.fused_epistemic_decode_cf_batched(
-            raw, priors, **kw), 10, flush)
-        plain_ms = event_ms(lambda: cuda_epistemic.epistemic_decode_plain(
-            raw, priors, **kw), 3, flush)
-        nbytes = raw.numel() * 4 + got.numel() * 4 + priors.numel() * 4
-        # per anchor-sample: 4 sums, 10 products+sums, 4+1+C exp, entropies
-        flops = raw.shape[1] * raw.shape[2] * 3 * (60 + 12 * C)
-        per_shape.append({
-            "shape": [int(s) for s in raw.shape], "n_imgs": nb,
-            "max_abs_err": float((got - want).abs().max()),
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
-            else "operations",
-            "bytes": nbytes,
-        })
-        del raw, got, want
-    main = per_shape[:3]  # one image of the main path = these three launches
+        rec = {"shape": [int(v) for v in raw.shape], "n_imgs": nb, "T": t,
+               "parts": cuda_epistemic.frame_parts(t, 3, h, w),
+               "max_abs_err": float((got - want).abs().max())}
+        if k < 3:  # one image of the main path = these three launches
+            nbytes = _decode_bytes(t, nb, h, w, C)
+            # per anchor-sample: 4 sums, 10 products+sums, 4+1+C exp, entropies
+            flops = raw.shape[1] * raw.shape[2] * 3 * (60 + 12 * C)
+            rec.update(
+                ms=event_ms(lambda: cuda_epistemic.fused_epistemic_decode_cf_batched(
+                    raw, priors, **kw), 10, flush),
+                device_ms=event_ms(lambda: cuda_epistemic.fused_epistemic_decode_cf_batched(
+                    raw, priors, **kw), 10, flush, device=True),
+                # the kernel's time at every part count it takes (the rule's pick in `parts`)
+                device_ms_by_parts={g: event_ms(lambda: cuda_epistemic._decode_launch(
+                    raw, priors, nb, h, w, C, kw["layer_id"], g), 5, flush, device=True)
+                    for g in PARTS},
+                plain_ms=event_ms(lambda: cuda_epistemic.epistemic_decode_plain(
+                    raw, priors, **kw), 3, flush),
+                bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
+                bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
+                else "operations", bytes=nbytes)
+            main.append((raw, kw))
+        else:
+            del raw
+        per_shape.append(rec)
+        del got, again, want
+    # the three launches of an image queued as the main path queues them, no flush
+    back_to_back = event_ms(lambda: [cuda_epistemic.fused_epistemic_decode_cf_batched(
+        raw, priors, **kw) for raw, kw in main], 10)
+    del main
+    timed = per_shape[:3]
     return {
         "name": "epistemic_decode", "route": "cuda",
         "source": "bayesian_yolov3_torch/csrc/epistemic_decode.cu",
         "replaces": "bayesian_yolov3_tpu/ops/pallas_epistemic.py:62",
-        "max_abs_err": max(s["max_abs_err"] for s in per_shape),
-        "ms": sum(s["ms"] for s in main),
-        "plain_ms": sum(s["plain_ms"] for s in main),
-        "bound_ms": sum(s["bound_ms"] for s in main),
-        "bound_by": "bytes", "library_ms": None,
+        "max_abs_err": max(r["max_abs_err"] for r in per_shape),
+        "ms": sum(r["ms"] for r in timed),
+        "device_ms": sum(r["device_ms"] for r in timed),
+        "plain_ms": sum(r["plain_ms"] for r in timed),
+        "bound_ms": sum(r["bound_ms"] for r in timed),
+        "bound_by": "bytes", "library_ms": None, "bytes": sum(r["bytes"] for r in timed),
+        "back_to_back_ms": back_to_back,
         "tolerance": [{"columns": list(c), "rtol": r, "atol": a} for c, r, a in EPI_TOL],
-        "note": "ms/plain_ms/bound_ms: the three launches of one 1024x1920 image summed",
+        "shapes_checked": len(EPI_CASES),
+        "note": "ms/plain_ms/bound_ms: the three launches of one 1024x1920 image at T=30 "
+                "summed, each launch timed alone after an L2 flush; device_ms: the same with "
+                "the host's enqueue hidden behind a spin on the card; back_to_back_ms: the "
+                "three queued together without a flush; bytes: the 9+C channels read, the "
+                "rows and the priors",
         "shapes": per_shape,
     }
 
 
 # kernels 10-11 against their plain versions.  The moment sums: float32 sums
-# over up to 30 samples, sequential in the kernel and blocked in the plain
-# version; that order moves a sum by up to ~T * 2^-24 * sum|x|, about 5e-5 for
-# 30 unit-scale products — hence atol 1e-4 beside rtol 1e-5.  The finalized
+# over up to 50 samples, in parts combined by a fixed tree in the kernel
+# (csrc/decode_common.cuh) and blocked in the plain version; that order
+# moves a sum by up to ~T * 2^-24 * sum|x|, about 5e-5 for 30 unit-scale
+# products — hence atol 1e-4 beside rtol 1e-5.  The finalized
 # rows: the same elementwise float32 arithmetic in the same order on the same
 # sums (no FMA on either side), a few ulp apart where expf / logf differ;
 # ids exactly.
 MOM_TOL = (1e-5, 1e-4)
 FIN_TOL = (1e-5, 1e-6)
-SPLIT_CASES = [(h, w, t, c) for h, w in SCALES for t in (30, 15, 1) for c in (1, 2, 8)]
+SPLIT_T = (30, 15, 1, 7, 29, 50)
+SPLIT_CASES = [(h, w, t, c) for h, w in (*SCALES, (5, 7)) for t in SPLIT_T for c in (1, 2, 8)]
 
 
 def _err_over_tol(got, want, rtol, atol):
@@ -223,53 +286,90 @@ def _err_over_tol(got, want, rtol, atol):
 
 
 def check_epistemic_moments(dev, flush):
-    """Kernel against plain version at the three ECP scales, T_local 30 / 15
-    / 1, C 1 / 2 / 8; times at the main paths' shapes (C=2, T_local=30 on one
-    rank and 15 on each of two), the three scales of one image summed."""
+    """Kernel against plain version at the three ECP scales and a ragged
+    (5, 7), T_local of SPLIT_T, C 1 / 2 / 8; a second launch equal to the
+    first; at C=2 the sums finalized equal, bit for bit, to the one-shot
+    decode of the same raws (the shared sample split).  Times at the main
+    paths' shapes (C=2, T_local=30 on one rank and 15 on each of two): per
+    scale, each launch alone after an L2 flush; the three launches of an
+    image summed, and queued back to back without a flush."""
     gen = torch.Generator(device=dev).manual_seed(6)
+    priors = torch.tensor([[0.3, 0.1], [0.15, 0.05], [0.08, 0.02]], device=dev)
     rtol, atol = MOM_TOL
-    worst, worst_ratio, timed = 0.0, 0.0, {}
-    for h, w, t_local, c in SPLIT_CASES:
+    worst, worst_ratio, timed, raws, n_equal = 0.0, 0.0, {}, {}, 0
+    for k, (h, w, t_local, c) in enumerate(SPLIT_CASES):
         raw = torch.randn((3 * 2 * (5 + c), t_local, h * w), generator=gen, device=dev)
         got = cuda_moments.epistemic_moments_cf(raw, cls_cnt=c)
+        again = cuda_moments.epistemic_moments_cf(raw, cls_cnt=c)
         torch.cuda.synchronize()
         want = cuda_moments.epistemic_moments_plain(raw, cls_cnt=c)
         name = f"epistemic_moments(T_local={t_local}, C={c}, {(h, w)})"
         check(got.shape == want.shape == (3, 21 + c, h * w), f"{name}: shape {tuple(got.shape)}")
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        check(torch.equal(got, again), f"{name}: a second launch differs from the first")
         ratio = _err_over_tol(got, want, rtol, atol)
         check(ratio <= 1.0, f"{name} disagrees with its plain version (rtol {rtol}, atol "
                             f"{atol}): max abs {float((got - want).abs().max())}")
         worst, worst_ratio = max(worst, float((got - want).abs().max())), max(worst_ratio, ratio)
-        if c == C and t_local in (30, 15):
+        if c == C:
+            kw = dict(h=h, w=w, cls_cnt=c, layer_id=k % 3)
+            rows = cuda_moments.epistemic_finalize(got, priors, T=t_local, **kw)
+            one_shot = cuda_epistemic.fused_epistemic_decode_cf_batched(raw, priors, n_imgs=1,
+                                                                       **kw)
+            check(torch.equal(rows, one_shot),
+                  f"{name}: finalized, not bit-identical to the one-shot decode: max abs "
+                  f"{float((rows - one_shot).abs().max())}")
+            n_equal += 1
+            del rows, one_shot
+        if c == C and t_local in (30, 15) and (h, w) in SCALES:
             # the bytes the function must move: the 9+C channels it reads of
             # every sample, the sums it writes
             nbytes = (3 * (9 + c) * t_local * h * w + got.numel()) * 4
             flops = 3 * t_local * h * w * (60 + 12 * c)
-            rec = timed.setdefault(t_local, {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0})
-            rec["ms"] += event_ms(lambda: cuda_moments.epistemic_moments_cf(raw, cls_cnt=c),
-                                  10, flush)
+            rec = timed.setdefault(t_local, {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                                             "bytes": 0, "flops": 0, "per_scale_ms": [],
+                                             "per_scale_device_ms": [], "parts": [],
+                                             "device_ms_by_parts": []})
+            ms = event_ms(lambda: cuda_moments.epistemic_moments_cf(raw, cls_cnt=c), 10, flush)
+            rec["ms"] += ms
+            rec["per_scale_ms"].append(ms)
+            ms = event_ms(lambda: cuda_moments.epistemic_moments_cf(raw, cls_cnt=c), 10, flush,
+                          device=True)
+            rec["device_ms"] += ms
+            rec["per_scale_device_ms"].append(ms)
+            rec["device_ms_by_parts"].append({g: event_ms(lambda: cuda_moments._moments_launch(
+                raw, c, 3, g), 5, flush, device=True) for g in PARTS})
+            rec["parts"].append(cuda_epistemic.frame_parts(t_local, 3, h, w))
             rec["plain_ms"] += event_ms(lambda: cuda_moments.epistemic_moments_plain(
                 raw, cls_cnt=c), 3, flush)
             rec["bytes"] += nbytes
             rec["flops"] += flops
-        del raw, got, want
-    for rec in timed.values():
+            raws.setdefault(t_local, []).append(raw)
+        del raw, got, again, want
+    for t_local, rec in timed.items():
         t_b, t_f = rec["bytes"] / HBM_BYTES_PER_S, rec["flops"] / FP32_FLOPS
         rec.update(bound_ms=max(t_b, t_f) * 1e3, bound_by="bytes" if t_b >= t_f else "operations")
+        rec["back_to_back_ms"] = event_ms(lambda: [cuda_moments.epistemic_moments_cf(
+            r, cls_cnt=C) for r in raws[t_local]], 10)
+    del raws
     main = timed[30]
     return {
         "name": "epistemic_moments", "route": "cuda",
         "source": "bayesian_yolov3_torch/csrc/epistemic_moments.cu",
         "replaces": "bayesian_yolov3_tpu/ops/pallas_epistemic.py:156",
-        "max_abs_err": worst, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "max_abs_err": worst, "ms": main["ms"], "device_ms": main["device_ms"],
+        "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
         "tolerance": {"rtol": rtol, "atol": atol}, "max_err_over_tolerance": worst_ratio,
-        "shapes_checked": len(SPLIT_CASES), "T_local_30": timed[30], "T_local_15": timed[15],
+        "shapes_checked": len(SPLIT_CASES), "bit_identical_to_decode": n_equal,
+        "T_local_30": timed[30], "T_local_15": timed[15],
         "note": "ms/plain_ms/bound_ms: the three launches of one 1024x1920 image at C=2 and "
                 "T_local=30 (one rank) summed, each launch timed alone after an L2 flush; "
-                "`T_local_15` gives the same for each of two ranks; no single PyTorch call "
-                "computes the moments",
+                "device_ms: the same with the host's enqueue hidden behind a spin on the card; "
+                "`T_local_15` gives the same for each of two ranks; back_to_back_ms: the "
+                "three queued together without a flush; bit_identical_to_decode: cases whose "
+                "sums, finalized, equal the one-shot decode; no single PyTorch call computes "
+                "the moments",
     }
 
 
@@ -1303,6 +1403,9 @@ def mc_split(runner, params, stats, frame, dev):
         got = finalize_shards(runner, shards)
         torch.cuda.synchronize()
         out[f"n_shards_{n}"] = split_agree(f"mc_split(n_shards={n})", got, want)
+    # one shard adds in the one-shot decode's order (the shared sample split)
+    check(out["n_shards_1"]["bit_identical"],
+          "mc_split(n_shards=1): the split form is not bit-identical to the one-shot decode")
     return out
 
 
@@ -1882,7 +1985,8 @@ def main():
     ptxas = {name: [ln.split(":", 1)[-1].strip()
                     for ln in _build.build_logs.get(name, "").splitlines()
                     if any(k in ln for k in ("registers", "spill", "entry function", "arning"))]
-             for name in ("fused_stem", "fused_res_block", "fused_downsample", "greedy_nms")}
+             for name in ("fused_stem", "fused_res_block", "fused_downsample", "greedy_nms",
+                          "epistemic_decode", "epistemic_moments")}
     emit("ptxas", **ptxas)
 
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)  # > 50 MB L2
@@ -1923,7 +2027,7 @@ def main():
     for k in kernels:
         path = {"box_decode": b_launches, **{m: mc_launches for m in MC_KERNELS}}
         k["launches"] = path.get(k["name"], launches)[k["name"]]
-    emit("summary", card=card, ptxas=ptxas,
+    emit("summary", card=card, ptxas=ptxas, smoke_wall_s=time.time() - t_start,
          **summarize(summary, timings, split, mc_summary, mc2, b_summary, b_timings))
     emit("done", seconds=time.time() - t_start)
     print(card, flush=True)
