@@ -81,6 +81,7 @@ import torch.multiprocessing as mp
 
 from bayesian_yolov3_torch.config import Config, DataConfig
 from bayesian_yolov3_torch.convert import tree_to
+from bayesian_yolov3_torch.core.blueprint import Variant, VariantSpec
 from bayesian_yolov3_torch.core.priors import priors_as_array
 from bayesian_yolov3_torch.data import pipeline, proto, tfrecord
 from bayesian_yolov3_torch.infer.detect import Detector
@@ -136,9 +137,9 @@ def check(cond, msg):
 
 
 # GPU clock cycles of a spin queued before the start event of a `device`
-# reading (about 0.15 ms): longer than the host takes to enqueue one wrapper
-# call, so the reading holds the kernel's time on the card alone
-SPIN_CYCLES = 300_000
+# reading (about 0.3 ms): longer than the host takes to enqueue a few wrapper
+# calls and a cat, so the reading holds the card's time alone
+SPIN_CYCLES = 600_000
 
 
 def event_ms(fn, reps, flush=None, device=False):
@@ -382,7 +383,8 @@ def check_epistemic_finalize(dev, flush):
     rtol, atol = FIN_TOL
     cases = [(1, *k) for k in SPLIT_CASES] + [(2, h, w, 30, C) for h, w in SCALES]
     worst, worst_ratio = 0.0, 0.0
-    timed = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0}
+    timed = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bytes": 0}
+    main = []  # the main path's three scales: (sums, kw)
     for k, (nb, h, w, t, c) in enumerate(cases):
         raw = torch.randn((3 * 2 * (5 + c), t, nb * h * w), generator=gen, device=dev)
         sums = cuda_moments.epistemic_moments_plain(raw, cls_cnt=c)
@@ -402,21 +404,37 @@ def check_epistemic_finalize(dev, flush):
         if nb == 1 and c == C and t == T:
             timed["ms"] += event_ms(lambda: cuda_moments.epistemic_finalize(sums, priors, **kw),
                                     10, flush)
+            timed["device_ms"] += event_ms(lambda: cuda_moments.epistemic_finalize(
+                sums, priors, **kw), 10, flush, device=True)
             timed["plain_ms"] += event_ms(lambda: cuda_moments.epistemic_finalize_plain(
                 sums, priors, **kw), 3, flush)
             timed["bytes"] += (sums.numel() + got.numel() + priors.numel()) * 4
-        del sums, got, want
+            main.append((sums, kw))
+        else:
+            del sums
+        del got, want
+
+    def all_scales():  # what the mc pipeline runs for one frame: three launches, one cat
+        return torch.cat([cuda_moments.epistemic_finalize(m, priors, **kw) for m, kw in main],
+                         dim=1)
+
+    timed["all_scales_ms"] = event_ms(all_scales, 10, flush)
+    timed["all_scales_device_ms"] = event_ms(all_scales, 10, flush, device=True)
+    del main
     return {
         "name": "epistemic_finalize", "route": "cuda",
         "source": "bayesian_yolov3_torch/csrc/epistemic_finalize.cu",
         "replaces": "bayesian_yolov3_tpu/ops/pallas_epistemic.py:181",
-        "max_abs_err": worst, "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+        "max_abs_err": worst, **timed,
         "bound_ms": timed["bytes"] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": None, "bytes": timed["bytes"],
+        "library_ms": None,
         "tolerance": {"rtol": rtol, "atol": atol, "id_columns": "exact"},
         "max_err_over_tolerance": worst_ratio, "shapes_checked": len(cases),
         "note": "ms/plain_ms/bound_ms: the three launches of one 1024x1920 image at C=2, T=30 "
-                "summed, each launch timed alone after an L2 flush; a few hundred flops per "
+                "summed, each launch timed alone after an L2 flush; device_ms: the same with "
+                "the host's enqueue hidden behind a spin on the card; all_scales_ms / "
+                "all_scales_device_ms: the function the mc pipeline runs for a frame (three "
+                "launches and the cat of their rows) timed as one; a few hundred flops per "
                 "anchor against 184 bytes, so bytes bound it; no single PyTorch call "
                 "computes the finalize",
     }
@@ -436,7 +454,7 @@ def check_box_decode(dev, flush):
     priors = torch.tensor([[0.3, 0.1], [0.15, 0.05], [0.08, 0.02]], device=dev)
     rtol, atol = BOX_TOL
     cases = [(nb, h, w) for nb in (1, BATCH) for h, w in SCALES] + [(3, 3, 5)]
-    checked, worst, worst_ratio, timed = 0, 0.0, 0.0, {}
+    checked, worst, worst_ratio, timed, main = 0, 0.0, 0.0, {}, {}
     for aleatoric in (False, True):
         for c in (1, 2, 8):
             chpp = 2 * (5 + c) if aleatoric else 5 + c
@@ -466,11 +484,14 @@ def check_box_decode(dev, flush):
                     n_read = (9 if aleatoric else 5) + c
                     nbytes = (3 * n_read * nb * h * w + got.numel() + priors.numel()) * 4
                     flops = 3 * nb * h * w * (40 + 12 * c)
-                    rec = timed.setdefault(aleatoric, {"ms": 0.0, "plain_ms": 0.0,
+                    rec = timed.setdefault(aleatoric, {"ms": 0.0, "device_ms": 0.0,
+                                                       "plain_ms": 0.0,
                                                        "back_to_back_ms": 0.0,
                                                        "bytes": 0, "flops": 0})
                     rec["ms"] += event_ms(lambda: cuda_decode.fused_box_decode_cf(
                         raw, priors, **kw), 10, flush)
+                    rec["device_ms"] += event_ms(lambda: cuda_decode.fused_box_decode_cf(
+                        raw, priors, **kw), 10, flush, device=True)
                     rec["plain_ms"] += event_ms(lambda: cuda_decode.box_decode_plain(
                         raw, priors, **kw), 3, flush)
                     # 20 launches back to back, no flush: the host's launch
@@ -480,25 +501,39 @@ def check_box_decode(dev, flush):
                         for _ in range(20)], 3) / 20
                     rec["bytes"] += nbytes
                     rec["flops"] += flops
+                    main.setdefault(aleatoric, []).append((raw, (h, w)))
                 del raw, got, want
-    for rec in timed.values():
+    for aleatoric, rec in timed.items():
         t_b, t_f = rec["bytes"] / HBM_BYTES_PER_S, rec["flops"] / FP32_FLOPS
         rec.update(bound_ms=max(t_b, t_f) * 1e3, bound_by="bytes" if t_b >= t_f else "operations")
+        # the function the batched runner calls, on the three scales of a batch
+        spec = VariantSpec(Variant.ALEATORIC if aleatoric else Variant.STANDARD, C)
+        by_stride = {s: priors for s in (32, 16, 8)}
+        rec["all_scales_ms"] = event_ms(lambda: cuda_decode.fused_box_decode_all_scales(
+            main[aleatoric], by_stride, spec=spec), 10, flush)
+        rec["all_scales_device_ms"] = event_ms(lambda: cuda_decode.fused_box_decode_all_scales(
+            main[aleatoric], by_stride, spec=spec), 10, flush, device=True)
+    del main
     main = timed[True]
     return {
         "name": "box_decode", "route": "cuda",
         "source": "bayesian_yolov3_torch/csrc/box_decode.cu",
         "replaces": "bayesian_yolov3_tpu/ops/pallas_decode.py:26",
-        "max_abs_err": worst, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "max_abs_err": worst, "ms": main["ms"], "device_ms": main["device_ms"],
+        "all_scales_ms": main["all_scales_ms"],
+        "all_scales_device_ms": main["all_scales_device_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
         "tolerance": {"rtol": rtol, "atol": atol, "id_columns": "exact"},
         "max_err_over_tolerance": worst_ratio, "shapes_checked": checked,
         "aleatoric": timed[True], "standard": timed[False],
         "note": f"ms/plain_ms/bound_ms: the three aleatoric launches of one batch of {BATCH} "
                 f"1024x1920 images at C={C} summed, each launch timed alone after an L2 "
-                "flush (host launch latency included); back_to_back_ms: the same launches "
-                "queued 20 at a time; `standard` gives the same for the standard head; no "
-                "single PyTorch call computes the decode",
+                "flush (host launch latency included); device_ms: the same with the host's "
+                "enqueue hidden behind a spin on the card; all_scales_ms / "
+                "all_scales_device_ms: fused_box_decode_all_scales, the function the runner "
+                "calls (three launches and the cat of their rows), timed as one; "
+                "back_to_back_ms: the same launches queued 20 at a time; `standard` gives the "
+                "same for the standard head; no single PyTorch call computes the decode",
     }
 
 
@@ -1474,12 +1509,12 @@ def main_path_mc(tmp, dev, card, runners, params, stats, frames):
                 outs = yolov3.mc_forward_cf(params, stats, x, spec=runner.spec, T=T, rng=keys,
                                             compute_dtype=tdt)
                 st["moments_ms"] = event_ms(lambda: [cuda_moments.epistemic_moments_cf(
-                    r, cls_cnt=C) for r, _ in outs], 3)
+                    r, cls_cnt=C) for r, _ in outs], 10)
                 sums = [cuda_moments.epistemic_moments_cf(r, cls_cnt=C) for r, _ in outs]
-                st["all_reduce_ms"] = event_ms(lambda: [group.all_reduce(m) for m in sums], 3)
-                st["finalize_ms"] = event_ms(lambda: [cuda_moments.epistemic_finalize(
-                    m, runner._priors[s], T=T, h=hw[0], w=hw[1], cls_cnt=C, layer_id=i)
-                    for i, (m, (_, hw), s) in enumerate(zip(sums, outs, (32, 16, 8)))], 3)
+                st["all_reduce_ms"] = event_ms(lambda: [group.all_reduce(m) for m in sums], 10)
+                st["finalize_ms"] = event_ms(lambda: torch.cat([cuda_moments.epistemic_finalize(
+                    m, runner._priors[s], T=T, h=hw[0], w=hw[1], cls_cnt=C, layer_id=i)[0]
+                    for i, (m, (_, hw), s) in enumerate(zip(sums, outs, (32, 16, 8)))]), 10)
                 flat = pipe.decode(params, stats, x)
                 st["nms_exact_ms"] = event_ms(lambda: nms.nms_select(
                     flat, runner.spec.obj_idx(epistemic=True), MAX_OUT, 0.5, pre_top_k=0), 3)
@@ -1858,7 +1893,7 @@ def timing_batched(runner, frames, dev, card):
         stage["heads_ms"] = stage["forward_cf_ms"] - stage["backbone_ms"]
         outs = yolov3.forward_cf(params, stats, x, spec=spec, compute_dtype=dtype)
         stage["decode_ms"] = event_ms(lambda: cuda_decode.fused_box_decode_all_scales(
-            outs, runner._priors, spec=spec), 5)
+            outs, runner._priors, spec=spec), 10)
         flat = cuda_decode.fused_box_decode_all_scales(outs, runner._priors, spec=spec)
         obj = spec.obj_idx()
         for name, k in ((f"nms_select_nb{BATCH}_top8192_ms", PRE_TOP_K),
