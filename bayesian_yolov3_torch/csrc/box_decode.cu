@@ -1,25 +1,32 @@
-// Per-sample box decode of the batched standard / aleatoric heads.
+// Per-sample box decode of the batched standard / aleatoric heads, every
+// scale of a batch in one launch.
 //
 // Replaces the TPU kernel bayesian_yolov3_tpu/ops/pallas_decode.py:_kernel
 // (behind fused_box_decode_cf / fused_box_decode_all_scales).
 //
-// Input  x    (B*chpp, nb, h*w) f32, cells minor; chpp = 5+C (standard) or
-//             2*(5+C) (aleatoric: loc, log_loc_var, obj, log_obj_stddev,
-//             cls, log_cls_stddev — the two stddev groups are not read)
-//        pri  (B, 2) f32 (prior_h, prior_w)
-// Output out  (nb, B*h*w, W) f32, W = 7+C (standard) or 14+C (aleatoric);
-//             rows prior-major, then row-major cells, inside each image.
+// Input  per scale s of the table (scale_table.cuh):
+//          x    (B*chpp, nb, h*w) f32, cells minor; chpp = 5+C (standard) or
+//               2*(5+C) (aleatoric: loc, log_loc_var, obj, log_obj_stddev,
+//               cls, log_cls_stddev — the two stddev groups are not read)
+//          pri  (B, 2) f32 (prior_h, prior_w)
+// Output out  (nb, rows, W) f32, rows = B * sum h*w, W = 7+C (standard) or
+//             14+C (aleatoric): per image the scales' rows one after the
+//             other, each prior-major, then row-major cells — the reference
+//             concat order, so no copy follows the launch.
 //
 // Bound: bytes.  Each thread reads 5+C (standard) or 9+C (aleatoric) floats
 // and writes W, with a few dozen flops in between; at 1024x1920, batch 11,
-// C=2 that is ~100 MB (aleatoric) for ~0.03 ms of HBM time.
+// C=2 that is 143.7 MB (aleatoric) for 0.043 ms of HBM time.  Three
+// launches, one a scale, paid a launch and a tail each and left a cat of the
+// rows (as many bytes again) to the caller; one launch over the table pays
+// one of each and writes the rows where they end.
 // Design: one thread per (image, prior, cell), cells the fastest index, so
 // for a fixed channel neighbouring threads read neighbouring floats.  A
-// block covers BOX_BLOCK consecutive cells of one (image, prior), whose
-// output rows form one contiguous run out[n, b*hw + cell0 ...]: the block
-// stages its rows in shared memory (odd row pitch, no bank conflicts) and
-// writes the run back with consecutive threads on consecutive addresses.
-// No tiling rule on h*w: the ragged last block is masked.
+// block covers SCALE_BLOCK consecutive cells of one (image, prior, scale),
+// whose output rows form one contiguous run: the block stages its rows in
+// shared memory (odd row pitch, no bank conflicts) and writes the run back
+// with consecutive threads on consecutive addresses.  No tiling rule on
+// h*w: each scale's ragged last block is masked.
 // The corner decode (decode_corners) and the softmax come from
 // decode_common.cuh, shared with the epistemic kernels; the variance product
 // uses __fmul_rn so no FMA contraction changes a rounding.
@@ -28,36 +35,36 @@
 #include <math.h>
 
 #include "decode_common.cuh"
+#include "scale_table.cuh"
 
-#define BOX_BLOCK 128
 #define BOX_MAX_C 8
 
 template <bool ALEATORIC, int C>
-__global__ void __launch_bounds__(BOX_BLOCK)
-box_decode_kernel(const float* __restrict__ x, const float* __restrict__ pri,
-                  float* __restrict__ out, int B, int nb, int h, int w,
-                  int layer_id) {
+__global__ void __launch_bounds__(SCALE_BLOCK)
+box_decode_kernel(const __grid_constant__ ScaleTable t, float* __restrict__ out, int B,
+                  int nb) {
   constexpr int CHPP = ALEATORIC ? 2 * (5 + C) : 5 + C;
   constexpr int W = ALEATORIC ? 14 + C : 7 + C;
   constexpr int PITCH = W | 1;
   constexpr int OBJ = ALEATORIC ? 8 : 4;   // objectness logit channel
   constexpr int CLS = ALEATORIC ? 10 : 5;  // first class logit channel
-  __shared__ float tile[BOX_BLOCK * PITCH];
+  __shared__ float tile[SCALE_BLOCK * PITCH];
 
-  const int hw = h * w;
-  const int nbp = blockIdx.y;  // n * B + b: the output's (image, prior) run
+  const Scale sc = block_scale(t);
+  const int hw = sc.h * sc.w;
+  const int nbp = blockIdx.y;  // n * B + b
   const int n = nbp / B;
   const int b = nbp - n * B;
-  const int cell0 = blockIdx.x * BOX_BLOCK;
+  const int cell0 = ((int)blockIdx.x - sc.first_block) * SCALE_BLOCK;
   const int cell = cell0 + threadIdx.x;
 
   if (cell < hw) {
     const size_t ch_stride = (size_t)nb * hw;
-    const float* xp = x + (size_t)b * CHPP * ch_stride + (size_t)n * hw + cell;
+    const float* xp = sc.x + (size_t)b * CHPP * ch_stride + (size_t)n * hw + cell;
     float* r = tile + threadIdx.x * PITCH;
 
-    decode_corners(xp[0], xp[ch_stride], xp[2 * ch_stride], xp[3 * ch_stride], cell, h, w,
-                   pri[2 * b + 0], pri[2 * b + 1], r);
+    decode_corners(xp[0], xp[ch_stride], xp[2 * ch_stride], xp[3 * ch_stride], cell, sc.h,
+                   sc.w, sc.pri[2 * b + 0], sc.pri[2 * b + 1], r);
 
     const float obj = sigmoidf(xp[OBJ * ch_stride]);
     float lg[C];
@@ -89,54 +96,50 @@ box_decode_kernel(const float* __restrict__ x, const float* __restrict__ pri,
 #pragma unroll
       for (int c = 0; c < C; ++c) r[k++] = lg[c];
     }
-    r[k++] = (float)layer_id;
+    r[k++] = (float)sc.layer_id;
     r[k] = (float)b;
   }
   __syncthreads();
 
-  // coalesced write-back of the block's contiguous run of rows
-  const int rows = min(BOX_BLOCK, hw - cell0);
-  float* o = out + ((size_t)nbp * hw + cell0) * W;
-  for (int i = threadIdx.x; i < rows * W; i += BOX_BLOCK) {
-    const int row = i / W;
-    o[i] = tile[row * PITCH + (i - row * W)];
-  }
+  // the block's contiguous run of rows in the image's concatenated rows
+  write_run<W, PITCH>(tile, out + ((size_t)n * t.rows + sc.row_off + (size_t)b * hw + cell0) * W,
+                      min(SCALE_BLOCK, hw - cell0));
 }
 
 template <bool ALEATORIC, int C>
-static void launch(const float* x, const float* pri, float* out, int B, int nb,
-                   int h, int w, int layer_id, cudaStream_t stream) {
-  const int hw = h * w;
-  dim3 grid((unsigned)((hw + BOX_BLOCK - 1) / BOX_BLOCK), (unsigned)(nb * B));
-  box_decode_kernel<ALEATORIC, C><<<grid, BOX_BLOCK, 0, stream>>>(
-      x, pri, out, B, nb, h, w, layer_id);
+static void launch(const ScaleTable& t, float* out, int B, int nb, cudaStream_t stream) {
+  box_decode_kernel<ALEATORIC, C><<<scale_grid(t, nb * B), SCALE_BLOCK, 0, stream>>>(
+      t, out, B, nb);
 }
 
 template <bool ALEATORIC>
-static int dispatch(const float* x, const float* pri, float* out, int B, int nb,
-                    int h, int w, int C, int layer_id, cudaStream_t st) {
+static int dispatch(const ScaleTable& t, float* out, int B, int nb, int C, cudaStream_t st) {
   switch (C) {
-    case 1: launch<ALEATORIC, 1>(x, pri, out, B, nb, h, w, layer_id, st); break;
-    case 2: launch<ALEATORIC, 2>(x, pri, out, B, nb, h, w, layer_id, st); break;
-    case 3: launch<ALEATORIC, 3>(x, pri, out, B, nb, h, w, layer_id, st); break;
-    case 4: launch<ALEATORIC, 4>(x, pri, out, B, nb, h, w, layer_id, st); break;
-    case 5: launch<ALEATORIC, 5>(x, pri, out, B, nb, h, w, layer_id, st); break;
-    case 6: launch<ALEATORIC, 6>(x, pri, out, B, nb, h, w, layer_id, st); break;
-    case 7: launch<ALEATORIC, 7>(x, pri, out, B, nb, h, w, layer_id, st); break;
-    case 8: launch<ALEATORIC, 8>(x, pri, out, B, nb, h, w, layer_id, st); break;
+    case 1: launch<ALEATORIC, 1>(t, out, B, nb, st); break;
+    case 2: launch<ALEATORIC, 2>(t, out, B, nb, st); break;
+    case 3: launch<ALEATORIC, 3>(t, out, B, nb, st); break;
+    case 4: launch<ALEATORIC, 4>(t, out, B, nb, st); break;
+    case 5: launch<ALEATORIC, 5>(t, out, B, nb, st); break;
+    case 6: launch<ALEATORIC, 6>(t, out, B, nb, st); break;
+    case 7: launch<ALEATORIC, 7>(t, out, B, nb, st); break;
+    case 8: launch<ALEATORIC, 8>(t, out, B, nb, st); break;
     default: return -1;
   }
   return (int)cudaGetLastError();
 }
 
-// Returns the cudaError_t of the launch (0 = success); -1 for a class count
-// outside [1, BOX_MAX_C].
-extern "C" int box_decode_launch(const float* x, const float* pri, float* out,
-                                 int B, int nb, int h, int w, int C,
-                                 int layer_id, int aleatoric, void* stream) {
+// One launch over the scales of *table (host memory; copied into the kernel's
+// parameters).  Returns the cudaError_t of the launch (0 = success); -1 for
+// a class count outside [1, BOX_MAX_C], -2 for a table of no scale or more
+// than MAX_SCALES.
+extern "C" int box_decode_launch(const ScaleTable* table, float* out, int B, int nb, int C,
+                                 int aleatoric, void* stream) {
+  if (table->n_scales < 1 || table->n_scales > MAX_SCALES) return -2;
   cudaStream_t st = (cudaStream_t)stream;
-  return aleatoric ? dispatch<true>(x, pri, out, B, nb, h, w, C, layer_id, st)
-                   : dispatch<false>(x, pri, out, B, nb, h, w, C, layer_id, st);
+  return aleatoric ? dispatch<true>(*table, out, B, nb, C, st)
+                   : dispatch<false>(*table, out, B, nb, C, st);
 }
 
 extern "C" int box_decode_max_classes() { return BOX_MAX_C; }
+extern "C" int box_decode_table_bytes() { return (int)sizeof(ScaleTable); }
+extern "C" int box_decode_scale_block() { return SCALE_BLOCK; }

@@ -182,7 +182,8 @@ class InferenceRunner:
     def _decoded_rows(self, params, stats, images, keys):
         """uint8 NHWC batch (tensor on the runner's device) + key table (see
         ``draw_keys``) -> the decoded rows of every anchor, (nb, N_total,
-        width): forward, then one decode launch per scale.  With
+        width): forward, then the decode (one launch over the three scales
+        on the batched path, one a scale on the epistemic path).  With
         ``packed_host_input`` ``images`` is the host-packed uint8 planes
         (nb, 16, L); the scaling then happens inside the backbone."""
         packed_hw = tuple(self.config.full_img_size[:2]) if self.packed else None

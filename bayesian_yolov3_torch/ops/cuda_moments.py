@@ -8,8 +8,13 @@ Replace the TPU kernels ``bayesian_yolov3_tpu/ops/pallas_epistemic.py``
 its own samples to unscaled sums (``csrc/epistemic_moments.cu``), the sums
 are all-reduced (``parallel/epistemic.py``), and the global sums become
 the (21+C)-wide rows of the one-shot epistemic decode
-(``csrc/epistemic_finalize.cu``).  Both kernels share the per-sample sums
-and the row finalization with ``csrc/epistemic_decode.cu``
+(``csrc/epistemic_finalize.cu``).  On the mc path a frame's three scales
+travel in ONE packed buffer (``decode.packed_views``: scale after scale,
+each a contiguous (B, 21+C, h*w) block that ``epistemic_moments_cf(...,
+out=view)`` fills): one all-reduce, then one finalize launch over a
+three-scale table (``cuda_decode.ScaleTable``) that writes the rows
+concatenated (``epistemic_finalize_all_scales``).  Both kernels share the
+per-sample sums and the row finalization with ``csrc/epistemic_decode.cu``
 (``csrc/decode_common.cuh``), and the moments kernel splits and combines
 each anchor's samples as the one-shot kernel does (``reduce_anchor_samples``,
 G from ``cuda_epistemic.frame_parts``): at T_local = T the split form of a
@@ -38,7 +43,9 @@ import ctypes
 
 import torch
 
+from ..core.priors import STRIDES
 from . import _build, decode
+from .cuda_decode import load_table_kernel, scale_table
 from .cuda_epistemic import check_split_warps, frame_parts
 
 MAX_CLASSES = 8  # MOM_MAX_C / FIN_MAX_C of the two sources
@@ -49,18 +56,19 @@ TRIU = [(i, j) for i in range(4) for j in range(i, 4)]
 launch_counts = {"epistemic_moments": 0, "epistemic_finalize": 0}
 
 
-def _lib(name):
-    lib = _build.load(name)
-    fn = getattr(lib, f"{name}_launch")
-    if not fn.argtypes:
-        if name == "epistemic_moments":  # x, out, B, T, total, C, G, stream
-            check_split_warps(lib, name)
-            fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                           + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        else:  # m, pri, out, B, n_imgs, h, w, T, C, layer_id, stream
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+def _moments_lib():
+    lib = _build.load("epistemic_moments")
+    fn = lib.epistemic_moments_launch
+    if not fn.argtypes:  # x, out, B, T, total, C, G, stream
+        check_split_warps(lib, "epistemic_moments")
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _finalize_lib():  # table, out, B, n_imgs, T, C, stream
+    return load_table_kernel("epistemic_finalize")
 
 
 def _check_classes(cls_cnt):
@@ -120,30 +128,51 @@ def epistemic_moments_plain(raw_cf, *, cls_cnt: int, n_priors: int = 3) -> torch
     return torch.cat(sums, dim=1)  # (B, 21+C, total)
 
 
-def epistemic_moments_cf(raw_cf, *, cls_cnt: int, n_priors: int = 3) -> torch.Tensor:
+def _check_out(out, raw_cf, cls_cnt, n_priors):
+    want = (n_priors, 21 + cls_cnt, raw_cf.shape[2])
+    if tuple(out.shape) != want:
+        raise ValueError(f"out has shape {tuple(out.shape)}, want {want}")
+    if out.dtype != torch.float32:
+        raise TypeError(f"out is {out.dtype}, want float32")
+    if out.device != raw_cf.device:
+        raise ValueError("out and raws lie on different devices")
+    if not out.is_contiguous():
+        raise ValueError("out is not contiguous")
+
+
+def epistemic_moments_cf(raw_cf, *, cls_cnt: int, n_priors: int = 3,
+                         out: torch.Tensor = None) -> torch.Tensor:
     """Partial epistemic moment sums over the LOCAL sample axis:
     raw_cf (B*chpp, T_local, total) f32 (the ``detection_conv_cf`` layout)
     -> (B, 21+C, total) f32.  All-reduce these across the ranks to get the
-    global sums for ``epistemic_finalize``."""
+    global sums for ``epistemic_finalize``.  ``out``: a contiguous float32
+    (B, 21+C, total) tensor (a scale's view of a frame's packed buffer) that
+    is filled and returned, in place of a new one."""
     _check_moments(raw_cf, cls_cnt, n_priors)
+    if out is not None:
+        _check_out(out, raw_cf, cls_cnt, n_priors)
     if not raw_cf.is_cuda:
-        return epistemic_moments_plain(raw_cf, cls_cnt=cls_cnt, n_priors=n_priors)
+        sums = epistemic_moments_plain(raw_cf, cls_cnt=cls_cnt, n_priors=n_priors)
+        return sums if out is None else out.copy_(sums)
     if not raw_cf.is_contiguous():
         raise ValueError("the epistemic moments kernel takes a contiguous raw_cf")
     # the anchor axis is one frame on the mc path: G as the decode takes it
     # for that frame
     _, t_local, total = raw_cf.shape
-    return _moments_launch(raw_cf, cls_cnt, n_priors, frame_parts(t_local, n_priors, 1, total))
+    return _moments_launch(raw_cf, cls_cnt, n_priors, out,
+                           frame_parts(t_local, n_priors, 1, total))
 
 
-def _moments_launch(raw_cf, cls_cnt, n_priors, parts):
+def _moments_launch(raw_cf, cls_cnt, n_priors, out, parts):
     """The kernel with each anchor's samples split over ``parts`` warps (the
-    wrapper passes ``frame_parts``; a measurement may pass another)."""
+    wrapper passes ``frame_parts``; a measurement may pass another), into
+    ``out`` (checked by the caller) or, if None, a new tensor."""
     _, t_local, total = raw_cf.shape
-    out = torch.empty((n_priors, 21 + cls_cnt, total), dtype=torch.float32,
-                      device=raw_cf.device)
+    if out is None:
+        out = torch.empty((n_priors, 21 + cls_cnt, total), dtype=torch.float32,
+                          device=raw_cf.device)
     with torch.cuda.device(raw_cf.device):
-        rc = _lib("epistemic_moments")(
+        rc = _moments_lib()(
             raw_cf.data_ptr(), out.data_ptr(), n_priors, t_local, total, cls_cnt, parts,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
@@ -190,22 +219,87 @@ def epistemic_finalize(moments, priors_hw, *, T: int, h: int, w: int, cls_cnt: i
     """Global moment sums (B, 21+C, n_imgs*h*w) f32 -> (n_imgs, B*h*w, 21+C)
     f32 rows in the reference concat order per image, the output of
     ``fused_epistemic_decode_cf_batched``.  ``T`` is the GLOBAL sample count
-    (every rank's samples), which scales the sums."""
+    (every rank's samples), which scales the sums.  On the card: the kernel
+    over a one-scale table."""
     _check_finalize(moments, priors_hw, T, h, w, cls_cnt, n_imgs)
     if not moments.is_cuda:
         return epistemic_finalize_plain(moments, priors_hw, T=T, h=h, w=w, cls_cnt=cls_cnt,
                                         layer_id=layer_id, n_imgs=n_imgs)
     if not moments.is_contiguous():
         raise ValueError("the epistemic finalize kernel takes contiguous moments")
-    B = moments.shape[0]
-    pri = priors_hw.contiguous()
-    out = torch.empty((n_imgs, B * h * w, 21 + cls_cnt), dtype=torch.float32,
-                      device=moments.device)
-    with torch.cuda.device(moments.device):
-        rc = _lib("epistemic_finalize")(
-            moments.data_ptr(), pri.data_ptr(), out.data_ptr(), B, n_imgs, h, w, T,
-            cls_cnt, layer_id, torch.cuda.current_stream().cuda_stream)
+    return _finalize_launch([moments.data_ptr()], [priors_hw], [layer_id],
+                            decode.scale_plan([(h, w)], priors_hw.shape[0]), T, cls_cnt, n_imgs,
+                            moments.device)
+
+
+def _finalize_launch(x_ptrs, priors, layer_ids, plan, T, cls_cnt, n_imgs, device):
+    """One launch over the scales whose sums lie at ``x_ptrs`` (checked by
+    the caller)."""
+    pris = [p.contiguous() for p in priors]
+    out = torch.empty((n_imgs, plan.rows, 21 + cls_cnt), dtype=torch.float32, device=device)
+    table = scale_table(plan, x_ptrs, [p.data_ptr() for p in pris], layer_ids)
+    with torch.cuda.device(device):
+        rc = _finalize_lib()(ctypes.byref(table), out.data_ptr(), plan.n_priors, n_imgs, T,
+                             cls_cnt, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"epistemic_finalize kernel launch failed (cudaError {rc})")
     launch_counts["epistemic_finalize"] += 1
     return out
+
+
+def _check_packed(packed, priors_by_stride, T, hws, cls_cnt, n_imgs):
+    """What ``epistemic_finalize`` checks of each scale's sums, checked
+    once for a packed buffer; the plan and the scales' priors."""
+    if not 1 <= len(hws) <= len(STRIDES):
+        raise ValueError(f"{len(hws)} scales; the finalize takes 1 to {len(STRIDES)}")
+    priors = [priors_by_stride[s] for s in STRIDES[:len(hws)]]
+    if packed.dtype != torch.float32 or any(p.dtype != torch.float32 for p in priors):
+        raise TypeError("epistemic finalize takes float32 moments and priors")
+    if not packed.is_contiguous():
+        raise ValueError("the packed moments are not contiguous")
+    _check_classes(cls_cnt)
+    if T < 1:
+        raise ValueError(f"T = {T}")
+    B = priors[0].shape[0]
+    if any(p.dim() != 2 or tuple(p.shape) != (B, 2) for p in priors):
+        raise ValueError(f"priors of shapes {[tuple(p.shape) for p in priors]}, want ({B}, 2)")
+    plan = decode.scale_plan(hws, B)
+    if packed.numel() != plan.rows * (21 + cls_cnt) * n_imgs:
+        raise ValueError(f"packed moments of {packed.numel()} floats, want "
+                         f"{plan.rows} rows x {21 + cls_cnt} x {n_imgs} images")
+    if any(p.device != packed.device for p in priors):
+        raise ValueError("priors and moments lie on different devices")
+    return plan, priors
+
+
+def epistemic_finalize_all_scales_plain(packed, priors_by_stride, *, T: int, hws,
+                                        cls_cnt: int, n_imgs: int = 1) -> torch.Tensor:
+    """The same function in plain PyTorch: each scale's plain rows written
+    at ``decode.scale_plan``'s offsets."""
+    plan, priors = _check_packed(packed, priors_by_stride, T, hws, cls_cnt, n_imgs)
+    out = torch.empty((n_imgs, plan.rows, 21 + cls_cnt), dtype=torch.float32,
+                      device=packed.device)
+    views = decode.packed_views(packed.reshape(-1), plan, 21 + cls_cnt, n_imgs)
+    for i, (m, (h, w), pri) in enumerate(zip(views, plan.hws, priors)):
+        off = plan.row_off[i]
+        out[:, off:off + plan.n_priors * h * w] = epistemic_finalize_plain(
+            m, pri, T=T, h=h, w=w, cls_cnt=cls_cnt, layer_id=i, n_imgs=n_imgs)
+    return out
+
+
+def epistemic_finalize_all_scales(packed, priors_by_stride, *, T: int, hws, cls_cnt: int,
+                                  n_imgs: int = 1) -> torch.Tensor:
+    """A frame's global sums of every scale, packed (``decode.packed_views``:
+    scale s of ``hws`` a contiguous (B, 21+C, n_imgs*h*w) block, scale order
+    32/16/8, layer ids 0/1/2) -> (n_imgs, N_total, 21+C) f32 rows in the
+    reference concat order, the output of the three one-shot decodes
+    concatenated; one kernel launch on the card.  ``priors_by_stride``:
+    {stride: (B, 2) tensor}; ``T`` the GLOBAL sample count."""
+    plan, priors = _check_packed(packed, priors_by_stride, T, hws, cls_cnt, n_imgs)
+    if not packed.is_cuda:
+        return epistemic_finalize_all_scales_plain(packed, priors_by_stride, T=T, hws=hws,
+                                                   cls_cnt=cls_cnt, n_imgs=n_imgs)
+    base, step = packed.data_ptr(), (21 + cls_cnt) * n_imgs * packed.element_size()
+    return _finalize_launch([base + off * step for off in plan.row_off], priors,
+                            list(range(len(plan.hws))), plan, T, cls_cnt, n_imgs,
+                            packed.device)

@@ -17,7 +17,8 @@ All math runs in float32 regardless of the conv compute dtype.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import functools
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -229,3 +230,50 @@ def concat_all_scales_batched(decoded: Sequence[torch.Tensor]) -> torch.Tensor:
         nb, h, w, B, width = d.shape
         flat.append(d.permute(0, 3, 1, 2, 4).reshape(nb, B * h * w, width))
     return torch.cat(flat, dim=1)
+
+
+# cells of one (image, prior, scale) that a block of the one-launch decode
+# kernels covers: SCALE_BLOCK of csrc/scale_table.cuh (both libraries export
+# theirs, checked against this one when they load)
+SCALE_BLOCK = 128
+
+
+class ScalePlan(NamedTuple):
+    """Where each scale's rows lie in one image's concatenated rows, and
+    which blocks of a one-launch kernel's grid cover them."""
+
+    hws: Tuple[Tuple[int, int], ...]  # (h, w) of each scale, in concat order
+    n_priors: int
+    row_off: Tuple[int, ...]  # first row of each scale in an image's rows
+    rows: int  # rows of one image: n_priors * sum(h * w)
+    first_block: Tuple[int, ...]  # first grid block of each scale, then the grid's extent
+
+
+def scale_plan(hws: Sequence[Tuple[int, int]], n_priors: int = 3) -> ScalePlan:
+    """The plan of ``concat_all_scales_batched``'s row order over scales of
+    (h, w) ``hws``: per image, scale after scale, each prior-major then
+    row-major cells; each scale's cells in blocks of ``SCALE_BLOCK``, a
+    ragged last block per scale.  The finalize's packed sums use the same
+    offsets times its row width (``packed_views``).  Cached: the kernels'
+    wrappers ask for it at every call."""
+    return _scale_plan(tuple((int(h), int(w)) for h, w in hws), int(n_priors))
+
+
+@functools.lru_cache(maxsize=64)
+def _scale_plan(hws, n_priors):
+    row_off, first_block, rows, blocks = [], [], 0, 0
+    for h, w in hws:
+        row_off.append(rows)
+        first_block.append(blocks)
+        rows += n_priors * h * w
+        blocks += -(-h * w // SCALE_BLOCK)
+    return ScalePlan(hws, n_priors, tuple(row_off), rows, (*first_block, blocks))
+
+
+def packed_views(packed: torch.Tensor, plan: ScalePlan, width: int, n_imgs: int = 1):
+    """The per-scale (n_priors, width, n_imgs*h*w) blocks of a flat buffer of
+    ``plan.rows * width * n_imgs`` elements, one after the other: scale s
+    starts at element ``plan.row_off[s] * width * n_imgs``."""
+    return [packed[off * width * n_imgs:(off + plan.n_priors * h * w) * width * n_imgs]
+            .view(plan.n_priors, width, n_imgs * h * w)
+            for off, (h, w) in zip(plan.row_off, plan.hws)]

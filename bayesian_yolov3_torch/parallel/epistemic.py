@@ -7,10 +7,12 @@ whole image and the dropout-bearing heads on its T/N samples.  Two ways:
 
 * ``make_mc_sharded_fused_pipeline`` — the fast one: each rank reduces its
   samples to unscaled moment sums (``ops.cuda_moments.epistemic_moments_cf``,
-  a hand-written kernel), the sums are all-reduced (one (B, 21+C, h*w)
-  float32 tensor per scale, independent of T), and every rank finalizes
-  the global sums into the decoded rows (``epistemic_finalize``, a second
-  kernel), concatenates the scales and runs exact NMS.
+  a hand-written kernel) written into one packed buffer per frame (the
+  three scales' (B, 21+C, h*w) float32 blocks one after the other,
+  independent of T), the buffer is all-reduced once, and every rank
+  finalizes the global sums of all three scales into the concatenated
+  decoded rows in one launch (``epistemic_finalize_all_scales``, a second
+  kernel) and runs exact NMS.
 * ``make_mc_sharded_forward`` — the fallback: each rank computes its
   samples' raw heads and all-gathers them, so every rank holds all T
   samples (ch, T, h*w) per scale, for the one-shot epistemic decode.
@@ -30,11 +32,10 @@ from __future__ import annotations
 import torch
 
 from ..models.yolov3 import _key_table, mc_forward_cf
+from ..ops import decode as ops_decode
 from ..ops import nms
-from ..ops.cuda_moments import epistemic_finalize, epistemic_moments_cf
+from ..ops.cuda_moments import epistemic_finalize_all_scales, epistemic_moments_cf
 from .mesh import Group, local_rows
-
-STRIDES = (32, 16, 8)
 
 
 def _check_split(T: int, group: Group):
@@ -75,9 +76,11 @@ def make_mc_sharded_fused_pipeline(model, group: Group, T: int, *, priors_by_str
     (1, max_out, 21+C), valid (1, max_out))``:
 
       per rank:    backbone -> heads on the rank's T/N samples -> the
-                   channels-first 1x1 detection conv -> partial moment sums
-      collective:  all-reduce (sum) of the (B, 21+C, h*w) float32 sums
-      every rank:  finalize with the GLOBAL T -> concat scales -> exact NMS
+                   channels-first 1x1 detection conv -> partial moment sums,
+                   the three scales' into one packed float32 buffer
+      collective:  one all-reduce (sum) of the packed buffer
+      every rank:  one finalize launch with the GLOBAL T, the three scales'
+                   rows written concatenated -> exact NMS
 
     ``fn.decode`` stops before NMS.  ``priors_by_stride``: {stride: (B, 2)
     tensor on the rank's device}.  ``fixed_masks`` (int seed or None): the
@@ -87,19 +90,23 @@ def make_mc_sharded_fused_pipeline(model, group: Group, T: int, *, priors_by_str
     there is no certificate to check and no retry."""
     _check_split(T, group)
     C = model.spec.cls_cnt
+    n_priors = priors_by_stride[32].shape[0]
 
     @torch.no_grad()
     def decode(params, stats, img, rng=None) -> torch.Tensor:
         """The decoded rows of every anchor, (N_total, 21+C), the same on
-        every rank: local sums -> all-reduce -> finalize, per scale."""
+        every rank: local sums of the three scales into one packed buffer ->
+        one all-reduce -> one finalize launch."""
         outs = _local_raws(model, group, T, fixed_masks, params, stats, img, rng)
-        decoded = []
-        for i, ((raw_cf, (h, w)), stride) in enumerate(zip(outs, STRIDES)):
-            moments = group.all_reduce(epistemic_moments_cf(raw_cf, cls_cnt=C))
-            decoded.append(epistemic_finalize(
-                moments, priors_by_stride[stride], T=T, h=h, w=w, cls_cnt=C,
-                layer_id=i)[0])  # (B*h*w, 21+C)
-        return torch.cat(decoded, dim=0)
+        hws = [hw for _, hw in outs]
+        plan = ops_decode.scale_plan(hws, n_priors)
+        packed = torch.empty(plan.rows * (21 + C), dtype=torch.float32,
+                             device=outs[0][0].device)
+        for (raw_cf, _), sums in zip(outs, ops_decode.packed_views(packed, plan, 21 + C)):
+            epistemic_moments_cf(raw_cf, cls_cnt=C, n_priors=n_priors, out=sums)
+        group.all_reduce(packed)
+        return epistemic_finalize_all_scales(packed, priors_by_stride, T=T, hws=hws,
+                                             cls_cnt=C)[0]
 
     def call(params, stats, img, rng=None):
         rows, valid, _ = nms.nms_select(decode(params, stats, img, rng), obj_idx,

@@ -24,7 +24,11 @@ kernels     each kernel against its plain PyTorch version on the card at the
             epistemic decode and moments at T = 1, 7, 15, 29, 30, 50 and
             ragged grids, a second launch equal to the first, a batch of
             images equal to each image decoded alone, the moments finalized
-            equal bit for bit to the decode
+            equal bit for bit to the decode; the box decode and the finalize
+            as one launch over three scales (the ECP scales and ragged sets)
+            equal bit for bit to their per-scale launches concatenated, the
+            finalize's packed sums written by the moments kernel through
+            ``out=`` views
 small_ref   the whole pipeline at 64x96 on the card (kernels, cuDNN) against
             the same pipeline on the CPU (plain versions), in float32 and bf16
 main_path   epistemic inference at full width — bayesian, 1024x1920, T=30 —
@@ -48,7 +52,8 @@ mc_split    the split form on one card: the moments of n shards of one frame's
 main_path_mc
             the fused mc-sharded pipeline (parallel/epistemic.py) over a
             one-rank NCCL group at 1024x1920, T=30, fixed masks, bf16 and
-            float32: launches, rows against the single-device runner's exact-NMS
+            float32: launches and all-reduces (one of each per frame for the
+            finalize), rows against the single-device runner's exact-NMS
             rows, ms per frame, stages, peak memory
 main_path_mc_2ranks
             two spawned ranks on the one card over gloo, each running
@@ -62,6 +67,7 @@ then exits non-zero and prints no result line.  The two-rank phase starts
 two processes (spawned, joined under a timeout) and leaves none behind.
 """
 
+import contextlib
 import ctypes
 import dataclasses
 import glob
@@ -89,9 +95,11 @@ from bayesian_yolov3_torch.infer.ecp import bbox_to_ecp_format
 from bayesian_yolov3_torch.infer.runner import InferenceRunner
 from bayesian_yolov3_torch.models import darknet, yolov3
 from bayesian_yolov3_torch.ops import (
-    _build, common, cuda_conv, cuda_decode, cuda_epistemic, cuda_moments, cuda_nms, nms)
+    _build, common, cuda_conv, cuda_decode, cuda_epistemic, cuda_moments, cuda_nms, decode,
+    nms)
 from bayesian_yolov3_torch.parallel import (
     initialize_distributed, local_rows, make_group, make_mc_sharded_fused_pipeline)
+from bayesian_yolov3_torch.parallel.mesh import Group
 from bayesian_yolov3_torch.train.checkpoints import CheckpointStore
 from bayesian_yolov3_torch.train.loop import partition_params
 
@@ -339,7 +347,7 @@ def check_epistemic_moments(dev, flush):
             rec["device_ms"] += ms
             rec["per_scale_device_ms"].append(ms)
             rec["device_ms_by_parts"].append({g: event_ms(lambda: cuda_moments._moments_launch(
-                raw, c, 3, g), 5, flush, device=True) for g in PARTS})
+                raw, c, 3, None, g), 5, flush, device=True) for g in PARTS})
             rec["parts"].append(cuda_epistemic.frame_parts(t_local, 3, h, w))
             rec["plain_ms"] += event_ms(lambda: cuda_moments.epistemic_moments_plain(
                 raw, cls_cnt=c), 3, flush)
@@ -374,17 +382,50 @@ def check_epistemic_moments(dev, flush):
     }
 
 
+# the scale sets of the one-launch decodes: the main path's three ECP scales,
+# and ragged sets whose scales each end in a partial block (one of them with
+# a scale of one cell)
+SCALE_SETS = (SCALES, ((3, 5), (6, 10), (12, 20)), ((1, 1), (7, 9), (13, 29)))
+
+
+def _priors_by_stride(dev):
+    """Other priors at every stride, so a scale that reads another's shows."""
+    return {s: torch.tensor([[0.3, 0.1], [0.15, 0.05], [0.08, 0.02]], device=dev) / (1 + k)
+            for k, s in enumerate((32, 16, 8))}
+
+
+def _rows_agree(name, got, want, rtol, atol):
+    """Rows against their plain version: the id columns (the last two)
+    exactly, the rest within rtol / atol; (max abs error, error / tolerance)."""
+    check(got.shape == want.shape, f"{name}: shapes {tuple(got.shape)} {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    check(torch.equal(got[..., -2:], want[..., -2:]), f"{name}: id columns differ")
+    err = (got[..., :-2] - want[..., :-2]).abs()
+    ratio = float((err / (atol + rtol * want[..., :-2].abs())).max())
+    check(ratio <= 1.0, f"{name} disagrees with its plain version (rtol {rtol}, atol {atol}): "
+                        f"max abs {float(err.max())}")
+    return float(err.max()), ratio
+
+
 def check_epistemic_finalize(dev, flush):
-    """Kernel against plain version on the sums of real samples at the three
-    ECP scales, T 30 / 15 / 1, C 1 / 2 / 8, and n_imgs 2 at C=2, T=30; times
-    at the main path's shapes (C=2, T=30, one image), three scales summed."""
+    """The per-scale wrapper (a one-scale table) against its plain version
+    on the sums of real samples at the three ECP scales and a ragged (5, 7),
+    T 30 / 15 / 1 / 7 / 29 / 50, C 1 / 2 / 8, and n_imgs 2 at C=2, T=30.
+    One launch over the scales of a packed buffer
+    (epistemic_finalize_all_scales) against its plain version and, bit for
+    bit, against the per-scale launches concatenated: the ECP scales at
+    n_imgs 1 and 2, T 30 / 15 / 1, C 1 / 2 / 8, and the ragged SCALE_SETS;
+    the buffer filled by the moments kernel through ``out=`` views, each
+    equal to the moments launched alone.  Times at the main path's shapes
+    (C=2, T=30, one image): the one launch alone after an L2 flush, the same
+    with the host's enqueue hidden, 20 back to back; and the three
+    per-scale launches, each alone, for comparison."""
     gen = torch.Generator(device=dev).manual_seed(7)
     priors = torch.tensor([[0.3, 0.1], [0.15, 0.05], [0.08, 0.02]], device=dev)
+    pri = _priors_by_stride(dev)
     rtol, atol = FIN_TOL
     cases = [(1, *k) for k in SPLIT_CASES] + [(2, h, w, 30, C) for h, w in SCALES]
     worst, worst_ratio = 0.0, 0.0
-    timed = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bytes": 0}
-    main = []  # the main path's three scales: (sums, kw)
     for k, (nb, h, w, t, c) in enumerate(cases):
         raw = torch.randn((3 * 2 * (5 + c), t, nb * h * w), generator=gen, device=dev)
         sums = cuda_moments.epistemic_moments_plain(raw, cls_cnt=c)
@@ -394,33 +435,62 @@ def check_epistemic_finalize(dev, flush):
         torch.cuda.synchronize()
         want = cuda_moments.epistemic_finalize_plain(sums, priors, **kw)
         name = f"epistemic_finalize(T={t}, C={c}, n_imgs={nb}, {(h, w)})"
-        check(got.shape == want.shape == (nb, 3 * h * w, 21 + c), f"{name}: shape")
-        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-        check(torch.equal(got[..., -2:], want[..., -2:]), f"{name}: id columns differ")
-        ratio = _err_over_tol(got[..., :-2], want[..., :-2], rtol, atol)
-        check(ratio <= 1.0, f"{name} disagrees with its plain version (rtol {rtol}, atol "
-                            f"{atol}): max abs {float((got - want).abs().max())}")
-        worst, worst_ratio = max(worst, float((got - want).abs().max())), max(worst_ratio, ratio)
-        if nb == 1 and c == C and t == T:
-            timed["ms"] += event_ms(lambda: cuda_moments.epistemic_finalize(sums, priors, **kw),
-                                    10, flush)
-            timed["device_ms"] += event_ms(lambda: cuda_moments.epistemic_finalize(
-                sums, priors, **kw), 10, flush, device=True)
-            timed["plain_ms"] += event_ms(lambda: cuda_moments.epistemic_finalize_plain(
-                sums, priors, **kw), 3, flush)
-            timed["bytes"] += (sums.numel() + got.numel() + priors.numel()) * 4
-            main.append((sums, kw))
-        else:
-            del sums
-        del got, want
+        check(got.shape == (nb, 3 * h * w, 21 + c), f"{name}: shape")
+        err, ratio = _rows_agree(name, got, want, rtol, atol)
+        worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+        del sums, got, want
 
-    def all_scales():  # what the mc pipeline runs for one frame: three launches, one cat
-        return torch.cat([cuda_moments.epistemic_finalize(m, priors, **kw) for m, kw in main],
-                         dim=1)
+    all_cases = ([(nb, SCALES, t, c) for nb in (1, 2) for t in (T, 15, 1) for c in (1, 2, 8)]
+                 + [(nb, hws, t, c) for hws in SCALE_SETS[1:] for nb, t, c in
+                    ((1, 7, 2), (3, 30, 1), (2, 15, 8))])
+    timed = None
+    for nb, hws, t, c in all_cases:
+        M = 21 + c
+        plan = decode.scale_plan(hws, 3)
+        packed = torch.empty(plan.rows * M * nb, device=dev)
+        views = decode.packed_views(packed, plan, M, nb)
+        for view, (h, w) in zip(views, hws):
+            raw = torch.randn((3 * 2 * (5 + c), t, nb * h * w), generator=gen, device=dev)
+            filled = cuda_moments.epistemic_moments_cf(raw, cls_cnt=c, out=view)
+            alone = cuda_moments.epistemic_moments_cf(raw, cls_cnt=c)
+            check(filled.data_ptr() == view.data_ptr() and torch.equal(view, alone),
+                  f"epistemic_moments(out=...) at {(nb, h, w, t, c)}: not the moments alone")
+            del raw, alone
+        kw = dict(T=t, hws=hws, cls_cnt=c, n_imgs=nb)
+        got = cuda_moments.epistemic_finalize_all_scales(packed, pri, **kw)
+        per = torch.cat([cuda_moments.epistemic_finalize(
+            m, pri[s], T=t, h=h, w=w, cls_cnt=c, layer_id=i, n_imgs=nb)
+            for i, (m, (h, w), s) in enumerate(zip(views, hws, (32, 16, 8)))], dim=1)
+        torch.cuda.synchronize()
+        want = cuda_moments.epistemic_finalize_all_scales_plain(packed, pri, **kw)
+        name = f"epistemic_finalize_all_scales(T={t}, C={c}, n_imgs={nb}, {hws})"
+        check(got.shape == (nb, plan.rows, M), f"{name}: shape {tuple(got.shape)}")
+        check(torch.equal(got, per),
+              f"{name}: one launch over the scales differs from the per-scale launches")
+        err, ratio = _rows_agree(name, got, want, rtol, atol)
+        worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+        if nb == 1 and hws == SCALES and t == T and c == C:
+            nbytes = (packed.numel() + got.numel() + sum(p.numel() for p in pri.values())) * 4
 
-    timed["all_scales_ms"] = event_ms(all_scales, 10, flush)
-    timed["all_scales_device_ms"] = event_ms(all_scales, 10, flush, device=True)
-    del main
+            def one():
+                return cuda_moments.epistemic_finalize_all_scales(packed, pri, **kw)
+
+            timed = {
+                "ms": event_ms(one, 10, flush),
+                "device_ms": event_ms(one, 10, flush, device=True),
+                "plain_ms": event_ms(lambda: cuda_moments.epistemic_finalize_all_scales_plain(
+                    packed, pri, **kw), 3, flush),
+                "back_to_back_ms": event_ms(lambda: [one() for _ in range(20)], 3) / 20,
+                "per_scale_ms": [event_ms(lambda: cuda_moments.epistemic_finalize(
+                    m, pri[s], T=t, h=h, w=w, cls_cnt=c, layer_id=i), 10, flush)
+                    for i, (m, (h, w), s) in enumerate(zip(views, hws, (32, 16, 8)))],
+                "per_scale_device_ms": [event_ms(lambda: cuda_moments.epistemic_finalize(
+                    m, pri[s], T=t, h=h, w=w, cls_cnt=c, layer_id=i), 10, flush, device=True)
+                    for i, (m, (h, w), s) in enumerate(zip(views, hws, (32, 16, 8)))],
+                "bytes": nbytes}
+            # the function the mc pipeline calls is the one launch
+            timed["all_scales_ms"], timed["all_scales_device_ms"] = timed["ms"], timed["device_ms"]
+        del packed, views, got, per, want
     return {
         "name": "epistemic_finalize", "route": "cuda",
         "source": "bayesian_yolov3_torch/csrc/epistemic_finalize.cu",
@@ -428,15 +498,17 @@ def check_epistemic_finalize(dev, flush):
         "max_abs_err": worst, **timed,
         "bound_ms": timed["bytes"] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None,
-        "tolerance": {"rtol": rtol, "atol": atol, "id_columns": "exact"},
-        "max_err_over_tolerance": worst_ratio, "shapes_checked": len(cases),
-        "note": "ms/plain_ms/bound_ms: the three launches of one 1024x1920 image at C=2, T=30 "
-                "summed, each launch timed alone after an L2 flush; device_ms: the same with "
-                "the host's enqueue hidden behind a spin on the card; all_scales_ms / "
-                "all_scales_device_ms: the function the mc pipeline runs for a frame (three "
-                "launches and the cat of their rows) timed as one; a few hundred flops per "
-                "anchor against 184 bytes, so bytes bound it; no single PyTorch call "
-                "computes the finalize",
+        "tolerance": {"rtol": rtol, "atol": atol, "id_columns": "exact",
+                      "all_scales_vs_per_scale": "bit for bit"},
+        "max_err_over_tolerance": worst_ratio, "shapes_checked": len(cases) + len(all_cases),
+        "note": "ms/plain_ms/bound_ms: epistemic_finalize_all_scales on the packed sums of one "
+                "1024x1920 image at C=2, T=30: ONE launch over the three scales, timed alone "
+                "after an L2 flush; device_ms: the same with the host's enqueue hidden behind "
+                "a spin on the card; all_scales_ms / all_scales_device_ms: the same function "
+                "(the mc pipeline's), so the same readings; per_scale_ms / "
+                "per_scale_device_ms: each scale's one-scale launch alone; back_to_back_ms: "
+                "the function queued 20 at a time; a few hundred flops per anchor against 184 "
+                "bytes, so bytes bound it; no single PyTorch call computes the finalize",
     }
 
 
@@ -447,93 +519,95 @@ BOX_TOL = (1e-5, 1e-6)
 
 
 def check_box_decode(dev, flush):
-    """Kernel against plain version at the three ECP scales, nb 1 and 11,
-    standard and aleatoric, C 1 / 2 / 8, plus a ragged (3, 3, 5); times at
-    the main path's shapes (nb 11, C 2), summed over the three scales."""
+    """One launch over the scales of a batch (fused_box_decode_all_scales)
+    against its plain version and, bit for bit, against the per-scale
+    launches (a one-scale table each) concatenated: the ECP scales at nb 1
+    and 11, the ragged SCALE_SETS at nb 3, standard and aleatoric, C 1 / 2 /
+    8.  Times at the main path's shapes (nb 11, C 2): the one launch alone
+    after an L2 flush, the same with the host's enqueue hidden, 20 back to
+    back; and the three per-scale launches, each alone, for comparison."""
     gen = torch.Generator(device=dev).manual_seed(5)
-    priors = torch.tensor([[0.3, 0.1], [0.15, 0.05], [0.08, 0.02]], device=dev)
+    pri = _priors_by_stride(dev)
     rtol, atol = BOX_TOL
-    cases = [(nb, h, w) for nb in (1, BATCH) for h, w in SCALES] + [(3, 3, 5)]
-    checked, worst, worst_ratio, timed, main = 0, 0.0, 0.0, {}, {}
+    cases = [(nb, SCALES) for nb in (1, BATCH)] + [(3, hws) for hws in SCALE_SETS[1:]]
+    checked, worst, worst_ratio, timed = 0, 0.0, 0.0, {}
     for aleatoric in (False, True):
         for c in (1, 2, 8):
+            spec = VariantSpec(Variant.ALEATORIC if aleatoric else Variant.STANDARD, c)
             chpp = 2 * (5 + c) if aleatoric else 5 + c
-            for k, (nb, h, w) in enumerate(cases):
-                raw = torch.randn((3 * chpp, nb, h * w), generator=gen, device=dev) * 2.0
-                kw = dict(h=h, w=w, cls_cnt=c, layer_id=k % 3, aleatoric=aleatoric)
-                got = cuda_decode.fused_box_decode_cf(raw, priors, **kw)
+            for nb, hws in cases:
+                outs = [(torch.randn((3 * chpp, nb, h * w), generator=gen, device=dev) * 2.0,
+                         (h, w)) for h, w in hws]
+                per_kw = [dict(h=h, w=w, cls_cnt=c, layer_id=i, aleatoric=aleatoric)
+                          for i, (h, w) in enumerate(hws)]
+                got = cuda_decode.fused_box_decode_all_scales(outs, pri, spec=spec)
+                per = torch.cat([cuda_decode.fused_box_decode_cf(raw, pri[s], **kw)
+                                 for (raw, _), s, kw in zip(outs, (32, 16, 8), per_kw)], dim=1)
                 torch.cuda.synchronize()
-                want = cuda_decode.box_decode_plain(raw, priors, **kw)
+                want = cuda_decode.box_decode_all_scales_plain(outs, pri, spec=spec)
                 torch.cuda.synchronize()
-                name = f"box_decode(aleatoric={aleatoric}, C={c}, {(nb, h, w)})"
-                check(got.shape == want.shape == (nb, 3 * h * w, (14 if aleatoric else 7) + c),
+                name = f"box_decode(aleatoric={aleatoric}, C={c}, nb={nb}, {hws})"
+                n_rows = 3 * sum(h * w for h, w in hws)
+                check(got.shape == (nb, n_rows, spec.decoded_width()),
                       f"{name}: shape {tuple(got.shape)}")
-                check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-                check(torch.equal(got[..., -2:], want[..., -2:]), f"{name}: id columns differ")
-                err = (got[..., :-2] - want[..., :-2]).abs()
-                ratio = float((err / (atol + rtol * want[..., :-2].abs())).max())
-                check(ratio <= 1.0, f"{name} disagrees with its plain version (rtol {rtol}, "
-                                    f"atol {atol}): max abs {float(err.max())}")
-                worst = max(worst, float(err.max()))
-                worst_ratio = max(worst_ratio, ratio)
+                check(torch.equal(got, per),
+                      f"{name}: one launch over the scales differs from the per-scale launches")
+                err, ratio = _rows_agree(name, got, want, rtol, atol)
+                worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
                 checked += 1
                 if nb == BATCH and c == C:
                     # bytes the function must move: the channels it reads
                     # (the aleatoric head's two stddev groups are not read),
                     # the rows, the priors
                     n_read = (9 if aleatoric else 5) + c
-                    nbytes = (3 * n_read * nb * h * w + got.numel() + priors.numel()) * 4
-                    flops = 3 * nb * h * w * (40 + 12 * c)
-                    rec = timed.setdefault(aleatoric, {"ms": 0.0, "device_ms": 0.0,
-                                                       "plain_ms": 0.0,
-                                                       "back_to_back_ms": 0.0,
-                                                       "bytes": 0, "flops": 0})
-                    rec["ms"] += event_ms(lambda: cuda_decode.fused_box_decode_cf(
-                        raw, priors, **kw), 10, flush)
-                    rec["device_ms"] += event_ms(lambda: cuda_decode.fused_box_decode_cf(
-                        raw, priors, **kw), 10, flush, device=True)
-                    rec["plain_ms"] += event_ms(lambda: cuda_decode.box_decode_plain(
-                        raw, priors, **kw), 3, flush)
-                    # 20 launches back to back, no flush: the host's launch
-                    # latency hidden behind the queue
-                    rec["back_to_back_ms"] += event_ms(lambda: [
-                        cuda_decode.fused_box_decode_cf(raw, priors, **kw)
-                        for _ in range(20)], 3) / 20
-                    rec["bytes"] += nbytes
-                    rec["flops"] += flops
-                    main.setdefault(aleatoric, []).append((raw, (h, w)))
-                del raw, got, want
-    for aleatoric, rec in timed.items():
-        t_b, t_f = rec["bytes"] / HBM_BYTES_PER_S, rec["flops"] / FP32_FLOPS
-        rec.update(bound_ms=max(t_b, t_f) * 1e3, bound_by="bytes" if t_b >= t_f else "operations")
-        # the function the batched runner calls, on the three scales of a batch
-        spec = VariantSpec(Variant.ALEATORIC if aleatoric else Variant.STANDARD, C)
-        by_stride = {s: priors for s in (32, 16, 8)}
-        rec["all_scales_ms"] = event_ms(lambda: cuda_decode.fused_box_decode_all_scales(
-            main[aleatoric], by_stride, spec=spec), 10, flush)
-        rec["all_scales_device_ms"] = event_ms(lambda: cuda_decode.fused_box_decode_all_scales(
-            main[aleatoric], by_stride, spec=spec), 10, flush, device=True)
-    del main
+                    nbytes = (n_read * nb * n_rows + got.numel()
+                              + sum(p.numel() for p in pri.values())) * 4
+                    flops = nb * n_rows * (40 + 12 * c)
+                    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+
+                    def one():
+                        return cuda_decode.fused_box_decode_all_scales(outs, pri, spec=spec)
+
+                    rec = timed[aleatoric] = {
+                        "ms": event_ms(one, 10, flush),
+                        "device_ms": event_ms(one, 10, flush, device=True),
+                        "plain_ms": event_ms(lambda: cuda_decode.box_decode_all_scales_plain(
+                            outs, pri, spec=spec), 3, flush),
+                        # 20 calls back to back, no flush: the host's launch
+                        # latency hidden behind the queue
+                        "back_to_back_ms": event_ms(lambda: [one() for _ in range(20)], 3) / 20,
+                        "per_scale_ms": [event_ms(lambda: cuda_decode.fused_box_decode_cf(
+                            raw, pri[s], **kw), 10, flush)
+                            for (raw, _), s, kw in zip(outs, (32, 16, 8), per_kw)],
+                        "per_scale_device_ms": [event_ms(lambda: cuda_decode.fused_box_decode_cf(
+                            raw, pri[s], **kw), 10, flush, device=True)
+                            for (raw, _), s, kw in zip(outs, (32, 16, 8), per_kw)],
+                        "bytes": nbytes, "flops": flops,
+                        "bound_ms": max(t_b, t_f) * 1e3,
+                        "bound_by": "bytes" if t_b >= t_f else "operations"}
+                    # the function the runner calls is the one launch
+                    rec["all_scales_ms"], rec["all_scales_device_ms"] = rec["ms"], rec["device_ms"]
+                del outs, got, per, want
     main = timed[True]
     return {
         "name": "box_decode", "route": "cuda",
         "source": "bayesian_yolov3_torch/csrc/box_decode.cu",
         "replaces": "bayesian_yolov3_tpu/ops/pallas_decode.py:26",
-        "max_abs_err": worst, "ms": main["ms"], "device_ms": main["device_ms"],
-        "all_scales_ms": main["all_scales_ms"],
-        "all_scales_device_ms": main["all_scales_device_ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
-        "tolerance": {"rtol": rtol, "atol": atol, "id_columns": "exact"},
+        "max_abs_err": worst, **{k: main[k] for k in (
+            "ms", "device_ms", "all_scales_ms", "all_scales_device_ms", "plain_ms", "bound_ms",
+            "bound_by")}, "library_ms": None,
+        "tolerance": {"rtol": rtol, "atol": atol, "id_columns": "exact",
+                      "all_scales_vs_per_scale": "bit for bit"},
         "max_err_over_tolerance": worst_ratio, "shapes_checked": checked,
         "aleatoric": timed[True], "standard": timed[False],
-        "note": f"ms/plain_ms/bound_ms: the three aleatoric launches of one batch of {BATCH} "
-                f"1024x1920 images at C={C} summed, each launch timed alone after an L2 "
-                "flush (host launch latency included); device_ms: the same with the host's "
-                "enqueue hidden behind a spin on the card; all_scales_ms / "
-                "all_scales_device_ms: fused_box_decode_all_scales, the function the runner "
-                "calls (three launches and the cat of their rows), timed as one; "
-                "back_to_back_ms: the same launches queued 20 at a time; `standard` gives the "
-                "same for the standard head; no single PyTorch call computes the decode",
+        "note": f"ms/plain_ms/bound_ms: fused_box_decode_all_scales on the three aleatoric "
+                f"scales of one batch of {BATCH} 1024x1920 images at C={C}: ONE launch, timed "
+                "alone after an L2 flush (host launch latency included); device_ms: the same "
+                "with the host's enqueue hidden behind a spin on the card; all_scales_ms / "
+                "all_scales_device_ms: the same function (the runner's), so the same readings; "
+                "per_scale_ms / per_scale_device_ms: each scale's one-scale launch alone; "
+                "back_to_back_ms: the function queued 20 at a time; `standard` gives the same "
+                "for the standard head; no single PyTorch call computes the decode",
     }
 
 
@@ -1072,6 +1146,22 @@ def read_counters():
 MC_KERNELS = ("epistemic_moments", "epistemic_finalize")  # the mc path's own
 
 
+@contextlib.contextmanager
+def count_all_reduces():
+    """The sizes (elements) of the ``Group.all_reduce`` calls made inside."""
+    calls, orig = [], Group.all_reduce
+
+    def counted(self, t):
+        calls.append(t.numel())
+        return orig(self, t)
+
+    Group.all_reduce = counted
+    try:
+        yield calls
+    finally:
+        Group.all_reduce = orig
+
+
 # bf16 rows, card against CPU or packed against image-fed input: the
 # convolutions round to bf16 in other places (cuDNN / the conv kernels on the
 # card, oneDNN / the plain versions on the CPU; one bf16 step on the input
@@ -1392,17 +1482,24 @@ def split_agree(name, got, want):
             "bit_identical": bool(torch.equal(got, want))}
 
 
+def packed_moments(shard):
+    """One shard's moments of the three scales (the three [(raw_cf, (h, w))]
+    of mc_forward_cf) in one packed buffer, as the mc pipeline writes them."""
+    hws = [hw for _, hw in shard]
+    plan = decode.scale_plan(hws, 3)
+    packed = torch.empty(plan.rows * (21 + C), device=shard[0][0].device)
+    for (raw, _), view in zip(shard, decode.packed_views(packed, plan, 21 + C)):
+        cuda_moments.epistemic_moments_cf(raw, cls_cnt=C, out=view)
+    return packed, hws
+
+
 def finalize_shards(runner, shards):
     """The decoded rows of one image (1, N_total, 21+C) from its samples split
-    into shards (per shard the three [(raw_cf, (h, w))] of mc_forward_cf): the
-    moments of each shard summed on the card (the all-reduce), finalized."""
-    rows = []
-    for i, s in enumerate((32, 16, 8)):
-        h, w = shards[0][i][1]
-        sums = sum(cuda_moments.epistemic_moments_cf(sh[i][0], cls_cnt=C) for sh in shards)
-        rows.append(cuda_moments.epistemic_finalize(sums, runner._priors[s], T=T, h=h, w=w,
-                                                    cls_cnt=C, layer_id=i))
-    return torch.cat(rows, dim=1)
+    into shards: each shard's packed moments, summed on the card (the
+    all-reduce), finalized in one launch."""
+    packs = [packed_moments(sh) for sh in shards]
+    return cuda_moments.epistemic_finalize_all_scales(
+        sum(p for p, _ in packs), runner._priors, T=T, hws=packs[0][1], cls_cnt=C)
 
 
 def split_rows(runner, params, stats, x, keys, n_shards):
@@ -1470,15 +1567,17 @@ def main_path_mc(tmp, dev, card, runners, params, stats, frames):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             reset_counters()
-            results = [pipe(params, stats, x) for x in imgs]
+            with count_all_reduces() as all_reduces:
+                results = [pipe(params, stats, x) for x in imgs]
             torch.cuda.synchronize()
-            launches = read_counters()
+            launches = {**read_counters(), "all_reduce": len(all_reduces)}
             peak = torch.cuda.max_memory_allocated() / 1e9
             n = len(frames)
             bf16 = dtype == "bfloat16"
-            want = {"epistemic_moments": 3 * n, "epistemic_finalize": 3 * n, "greedy_nms": n,
+            want = {"epistemic_moments": 3 * n, "epistemic_finalize": n, "greedy_nms": n,
                     "epistemic_decode": 0, "box_decode": 0, "fused_stem": n * bf16,
-                    "fused_res_block": 11 * n * bf16, "fused_downsample": 2 * n * bf16}
+                    "fused_res_block": 11 * n * bf16, "fused_downsample": 2 * n * bf16,
+                    "all_reduce": n}
             check(launches == want, f"main_path_mc {dtype}: launches {launches}, want {want}")
             if bf16:
                 launches_bf16 = launches
@@ -1508,13 +1607,12 @@ def main_path_mc(tmp, dev, card, runners, params, stats, frames):
                 st["heads_ms"] = st["backbone_heads_ms"] - st["backbone_ms"]
                 outs = yolov3.mc_forward_cf(params, stats, x, spec=runner.spec, T=T, rng=keys,
                                             compute_dtype=tdt)
-                st["moments_ms"] = event_ms(lambda: [cuda_moments.epistemic_moments_cf(
-                    r, cls_cnt=C) for r, _ in outs], 10)
-                sums = [cuda_moments.epistemic_moments_cf(r, cls_cnt=C) for r, _ in outs]
-                st["all_reduce_ms"] = event_ms(lambda: [group.all_reduce(m) for m in sums], 10)
-                st["finalize_ms"] = event_ms(lambda: torch.cat([cuda_moments.epistemic_finalize(
-                    m, runner._priors[s], T=T, h=hw[0], w=hw[1], cls_cnt=C, layer_id=i)[0]
-                    for i, (m, (_, hw), s) in enumerate(zip(sums, outs, (32, 16, 8)))]), 10)
+                st["moments_ms"] = event_ms(lambda: packed_moments(outs), 10)
+                sums, hws = packed_moments(outs)
+                st["all_reduce_ms"] = event_ms(lambda: group.all_reduce(sums), 10)
+                st["all_reduce_bytes"] = sums.numel() * 4
+                st["finalize_ms"] = event_ms(lambda: cuda_moments.epistemic_finalize_all_scales(
+                    sums, runner._priors, T=T, hws=hws, cls_cnt=C), 10)
                 flat = pipe.decode(params, stats, x)
                 st["nms_exact_ms"] = event_ms(lambda: nms.nms_select(
                     flat, runner.spec.obj_idx(epistemic=True), MAX_OUT, 0.5, pre_top_k=0), 3)
@@ -1544,9 +1642,11 @@ def _mc_rank(rank, store, cfg, res_dir, frame0_path, dev):
         torch.cuda.reset_peak_memory_stats()
         reset_counters()
         t0 = time.time()
-        res["out_dir"] = runner.run()
+        with count_all_reduces() as all_reduces:
+            res["out_dir"] = runner.run()
         torch.cuda.synchronize()
-        res.update(run_wall_s=time.time() - t0, loop=runner.last_run, launches=read_counters(),
+        res.update(run_wall_s=time.time() - t0, loop=runner.last_run,
+                   launches={**read_counters(), "all_reduce": len(all_reduces)},
                    peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9, writes=len(writes),
                    retried=runner.retried)
 
@@ -1581,9 +1681,9 @@ def _mc_rank(rank, store, cfg, res_dir, frame0_path, dev):
                                         T=cfg.T // MC_RANKS,
                                         rng=local_rows(keys, rank, MC_RANKS),
                                         compute_dtype=runner.model._dtype)
-        sums = [cuda_moments.epistemic_moments_cf(r, cls_cnt=C) for r, _ in outs]
-        res["all_reduce_wall_ms"] = wall_ms(lambda: [runner.group.all_reduce(m) for m in sums], 3)
-        res["all_reduce_bytes"] = sum(m.numel() * 4 for m in sums)
+        sums, _ = packed_moments(outs)
+        res["all_reduce_wall_ms"] = wall_ms(lambda: runner.group.all_reduce(sums), 3)
+        res["all_reduce_bytes"] = sums.numel() * 4
     except BaseException:
         res["error"] = traceback.format_exc()
         raise
@@ -1702,12 +1802,12 @@ def main_path_mc_2ranks(tmp, dev, card, runner, params, stats):
     check(r0["writes"] == 2 and r1["writes"] == 0, f"writes: rank 0 {r0['writes']}, "
                                                    f"rank 1 {r1['writes']}")
     for r in ranks:
-        want = {"epistemic_moments": 6, "epistemic_finalize": 6, "greedy_nms": 2,
+        want = {"epistemic_moments": 6, "epistemic_finalize": 2, "greedy_nms": 2,
                 "epistemic_decode": 0, "box_decode": 0, "fused_stem": 2, "fused_res_block": 22,
-                "fused_downsample": 4}
+                "fused_downsample": 4, "all_reduce": 2}
         check(r["launches"] == want, f"rank {r['rank']}: launches {r['launches']}, want {want}")
         check(r["retried"] == 0, "the fused mc path retried NMS")
-        fb = r["fallback"]["launches"]
+        fb = r["fallback"]["launches"]  # the fallback all-gathers: no all-reduce
         check(fb["epistemic_decode"] == 6 and fb["greedy_nms"] >= 1
               and fb["epistemic_moments"] == 0 and r["fallback"]["finite"]
               and r["fallback"]["detections"] > 0, f"rank {r['rank']} fallback: {r['fallback']}")
@@ -1776,10 +1876,11 @@ def make_batched_config(tmp, name, model, pattern, **kw):
 
 
 def check_batched_launches(name, launches, n_batches, bf16):
-    """3 box-decode launches per batch, no epistemic decode, NMS, and the
-    fused conv kernels 1 / 11 / 2 times per batch in bf16, never in float32."""
+    """1 box-decode launch per batch (the three scales in one), no epistemic
+    decode, NMS, and the fused conv kernels 1 / 11 / 2 times per batch in
+    bf16, never in float32."""
     check(not any(launches[k] for k in MC_KERNELS), f"{name}: an mc kernel ran")
-    check(launches["box_decode"] == 3 * n_batches,
+    check(launches["box_decode"] == n_batches,
           f"{name}: {launches['box_decode']} box_decode launches for {n_batches} batches")
     check(launches["epistemic_decode"] == 0, f"{name}: the epistemic decode ran")
     check(launches["greedy_nms"] > 0, f"{name}: no greedy_nms launch")
@@ -1850,7 +1951,7 @@ def main_path_batched(tmp, dev):
     reset_counters()
     res = det.detect_file(png)
     launches_d = read_counters()
-    check(launches_d["box_decode"] == 3 and launches_d["greedy_nms"] >= 1,
+    check(launches_d["box_decode"] == 1 and launches_d["greedy_nms"] >= 1,
           f"Detector launches {launches_d}")
     check(0 < len(res["boxes"]) <= MAX_OUT and all(
         math.isfinite(b[k]) for b in res["boxes"] for k in ("x0", "y0", "x1", "y1", "score")),
@@ -2021,7 +2122,8 @@ def main():
                     for ln in _build.build_logs.get(name, "").splitlines()
                     if any(k in ln for k in ("registers", "spill", "entry function", "arning"))]
              for name in ("fused_stem", "fused_res_block", "fused_downsample", "greedy_nms",
-                          "epistemic_decode", "epistemic_moments")}
+                          "epistemic_decode", "epistemic_moments", "box_decode",
+                          "epistemic_finalize")}
     emit("ptxas", **ptxas)
 
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)  # > 50 MB L2
