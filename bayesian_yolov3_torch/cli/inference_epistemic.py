@@ -11,7 +11,9 @@ Runs on the CUDA device unless ``--device cpu`` is given.  The default
 ``compute_dtype=bfloat16`` takes the fused early backbone (hand-written conv
 kernels) and the tensor cores; ``--set compute_dtype=float32`` runs every
 convolution in true float32; ``--set packed_host_input=true`` feeds
-host-packed uint8 planes instead of NHWC images.
+host-packed uint8 planes instead of NHWC images; ``--set quantize=int8``
+runs the head section in int8, calibrated on the first
+``quant_calib_images`` frames (2 by default).
 
 The T samples of each image split over N cards, one process per card:
 

@@ -12,7 +12,9 @@ box decode kernel and the greedy-NMS kernel.  The default
 ``compute_dtype=bfloat16`` takes the fused early backbone (hand-written conv
 kernels) and the tensor cores; ``--set compute_dtype=float32`` runs every
 convolution in true float32; ``--set packed_host_input=true`` feeds
-host-packed uint8 planes instead of NHWC images.
+host-packed uint8 planes instead of NHWC images; ``--set quantize=int8``
+runs the head section in int8, calibrated on the first
+``quant_calib_images`` frames (2 by default).
 """
 
 import logging

@@ -43,6 +43,25 @@ def params_to_jax(params: Dict, stats: Dict) -> Tuple[Dict, Dict]:
     return _map_leaves(params, leaf), _map_leaves(stats, leaf)
 
 
+def qheads_from_jax(qh_np: Dict, device="cpu") -> Dict:
+    """The JAX package's quantized-head pytree (numpy leaves, from
+    ``ops/quant.py:quantize_heads``) -> this package's dict
+    (``ops.quant.quantize_heads``): conv blocks' int8 kernels HWIO -> OIHW,
+    the detection kernels (cin, ch) -> (ch, cin) (the rows of the port's
+    int8 detection product), float vectors as float32 tensors on
+    ``device``, scalar scales as Python floats."""
+
+    def leaf(name, v):
+        a = np.asarray(v)
+        if a.ndim == 0:
+            return float(a)
+        if name == "wq":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        return torch.from_numpy(np.array(a, order="C")).to(device)
+
+    return _map_leaves(qh_np, leaf)
+
+
 def tree_to(tree: Dict, device) -> Dict:
     """A params / stats tree with every tensor moved to ``device``."""
     return _map_leaves(tree, lambda _name, v: v.to(device))

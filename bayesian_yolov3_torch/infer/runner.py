@@ -37,8 +37,17 @@ keys: ``use_pallas=True`` takes the fused pipeline (partial moments,
 all-reduce, finalize; exact NMS, so no retry), ``use_pallas=False`` the
 all-gather fallback (the one-shot decode of the gathered samples, certified
 NMS and the exact retry).  Only rank 0 writes JSON.  ``{'mc': 1}`` is the
-single-device path.  The ``dp`` and ``sp`` axes and ``quantize`` are not
-ported yet and raise here.
+single-device path.  The ``dp`` and ``sp`` axes are not ported yet and
+raise here.
+
+``quantize="int8"`` runs the head section in int8 on all three paths
+(``models.quant``: ``mc_forward_cf_q`` on the epistemic path,
+``forward_cf_q`` on the batched one, the int8 heads inside the fused mc
+pipeline), behind the same decode and NMS kernels.  ``calibrate_int8``
+builds the quantized heads from a few images (``run()`` calibrates on the
+dataset's first ``quant_calib_images`` frames by itself); ``predict()``
+refuses to run before it.  The mc all-gather fallback refuses int8, as the
+JAX runner's GSPMD fallback does.
 """
 
 from __future__ import annotations
@@ -58,10 +67,12 @@ from ..convert import tree_to
 from ..core.blueprint import Variant
 from ..core.priors import priors_as_array
 from ..data import pipeline
+from ..models.quant import forward_cf_q, mc_forward_cf_q
 from ..models.yolov3 import YoloV3, _batch_keys, _key_table, forward_cf, mc_forward_cf
 from ..ops import nms
 from ..ops.cuda_decode import fused_box_decode_all_scales
 from ..ops.cuda_epistemic import fused_epistemic_decode_cf_batched
+from ..ops.quant import calibrate_forward_amax, calibrate_mc_amax, quantize_heads
 from ..parallel import make_group, make_mc_sharded_forward, make_mc_sharded_fused_pipeline
 from ..train.checkpoints import CheckpointStore
 from ..train.loop import merge_params, partition_params
@@ -84,8 +95,15 @@ class InferenceRunner:
         self.model = YoloV3.from_config(config)
         self.spec = self.model.spec
         self.epistemic = self.spec.variant == Variant.BAYESIAN and config.inference_mode
+        self._qheads = None  # the int8 head section, once calibrated
         if config.quantize is not None:
-            raise NotImplementedError("quantize belongs to the int8 slice")
+            if config.quantize != "int8":
+                raise ValueError(f"unknown quantize mode {config.quantize!r}")
+            if (config.mesh_shape or {}).get("mc", 0) > 1 and not config.use_pallas:
+                raise ValueError(
+                    "quantize='int8' over the mc axis requires the fused pipeline "
+                    "(use_pallas=True); the all-gather fallback does not run the int8 "
+                    "heads")
         # run() then feeds host-packed planes to the fused early backbone
         self.packed = bool(config.packed_host_input)
         # the dropout keys of every batch come from this CPU generator, seeded
@@ -162,6 +180,33 @@ class InferenceRunner:
 
     # -- device program -------------------------------------------------
 
+    def calibrate_int8(self, params, stats, images):
+        """Calibrate and build the int8 head section (``quantize="int8"``).
+
+        ``images``: a representative uint8 NHWC batch (1-4 images: max-abs
+        calibration).  Epistemic runners calibrate over the MC sample
+        distribution (``calibrate_mc_amax``), batched ones over the batched
+        forward (``calibrate_forward_amax``).  The dropout keys come from a
+        generator of its own, seeded 0, so the runner's key stream does not
+        move.  ``run()`` calls this on the dataset's first
+        ``quant_calib_images`` frames; ``predict()`` users call it once."""
+        cfg = self.config
+        if cfg.quantize != "int8":
+            raise ValueError("config.quantize is not 'int8'")
+        imgs = torch.as_tensor(np.asarray(images)).to(self.device).float() / 255.0
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        kw = dict(spec=self.spec, rng=gen, compute_dtype=self.model._dtype,
+                  percentile=cfg.quant_calib_percentile)
+        if self.epistemic:
+            amax = calibrate_mc_amax(params, stats, imgs, T=cfg.T, **kw)
+        else:
+            amax = calibrate_forward_amax(params, stats, imgs,
+                                          standard_test_dropout=cfg.standard_test_dropout, **kw)
+        self._qheads = quantize_heads(params, stats, self.spec, amax)
+        log.info("int8 head section calibrated on %d images (%d sites)", imgs.shape[0],
+                 len(amax))
+        return self._qheads
+
     def device_batch_size(self) -> int:
         """Largest image batch one pipeline call takes: the image batch
         folds onto the anchor axis of the epistemic decode, onto the batch
@@ -188,23 +233,24 @@ class InferenceRunner:
         (nb, 16, L); the scaling then happens inside the backbone."""
         packed_hw = tuple(self.config.full_img_size[:2]) if self.packed else None
         imgs = images if self.packed else images.float() / 255.0
+        qh = self._qheads  # the int8 forwards take the float ones' arguments and qh
         if not self.epistemic:
-            outs = forward_cf(
-                params, stats, imgs, spec=self.spec, rng=keys,
-                standard_test_dropout=self.config.standard_test_dropout,
-                compute_dtype=self.model._dtype, packed_hw=packed_hw,
-            )
+            kw = dict(spec=self.spec, rng=keys,
+                      standard_test_dropout=self.config.standard_test_dropout,
+                      compute_dtype=self.model._dtype, packed_hw=packed_hw)
+            outs = (forward_cf(params, stats, imgs, **kw) if qh is None
+                    else forward_cf_q(qh, params, stats, imgs, **kw))
             return fused_box_decode_all_scales(outs, self._priors, spec=self.spec)
         nb = imgs.shape[0]
         if self._mc_fused is not None:
-            return self._mc_fused.decode(params, stats, imgs, keys)[None]
+            return self._mc_fused.decode(params, stats, imgs, keys, qheads=qh)[None]
         if self._mc_forward is not None:
             outs = self._mc_forward(params, stats, imgs, keys)
         else:
-            outs = mc_forward_cf(
-                params, stats, imgs, spec=self.spec, T=self.config.T, rng=keys,
-                compute_dtype=self.model._dtype, packed_hw=packed_hw,
-            )
+            kw = dict(spec=self.spec, T=self.config.T, rng=keys,
+                      compute_dtype=self.model._dtype, packed_hw=packed_hw)
+            outs = (mc_forward_cf(params, stats, imgs, **kw) if qh is None
+                    else mc_forward_cf_q(qh, params, stats, imgs, **kw))
         return torch.cat(
             [
                 fused_epistemic_decode_cf_batched(
@@ -244,7 +290,8 @@ class InferenceRunner:
         fused mc pipeline runs its own exact NMS (no retry); every other
         path decodes here and takes the certified NMS in ``finish``."""
         if self._mc_fused is not None:
-            rows, valid = self._mc_fused(params, stats, images.float() / 255.0, keys)
+            rows, valid = self._mc_fused(params, stats, images.float() / 255.0, keys,
+                                         qheads=self._qheads)
             return lambda: (rows, valid, False)
         flat = self._decoded_rows(params, stats, images, keys)
         return lambda: self._select_certified(flat)
@@ -266,6 +313,10 @@ class InferenceRunner:
         if self.packed:
             raise ValueError("predict() takes NHWC uint8 images; packed_host_input "
                              "is a run()-loop feed")
+        if self.config.quantize is not None and self._qheads is None:
+            raise RuntimeError(
+                "config.quantize is set but the int8 head section is not calibrated: "
+                "call calibrate_int8(params, stats, images) once before predict()")
         if keys is None:
             keys = self.draw_keys()
         images_d = torch.as_tensor(np.asarray(images)).to(self.device)
@@ -287,6 +338,15 @@ class InferenceRunner:
         if self.rank == 0:
             os.makedirs(out_dir)
 
+        if cfg.quantize is not None and self._qheads is None:
+            # calibrate on the dataset's first frames (a loader of its own; the
+            # main loop reads them again and runs them quantized like the rest)
+            calib = []
+            for b in pipeline.TestLoader(cfg, batch_size=1).batches():
+                calib.append(b["image"][0])
+                if len(calib) >= cfg.quant_calib_images:
+                    break
+            self.calibrate_int8(params, stats, np.stack(calib))
         batch_size = self.device_batch_size()
         loader = pipeline.TestLoader(cfg, batch_size=batch_size, pack_planes=self.packed)
         n = 0

@@ -108,28 +108,14 @@ def _key_table(rng, fixed_masks, T: int) -> np.ndarray:
     return table
 
 
-def _heads(
-    params: Dict,
-    stats: Dict,
-    dn_out: torch.Tensor,
-    skip16: torch.Tensor,
-    skip8: torch.Tensor,
-    *,
-    site_keys: Optional[np.ndarray] = None,
-    compute_dtype=torch.float32,
-    return_features: bool = False,
-):
-    """Everything after the backbone: 3 det heads + scale transitions.
-
-    ``site_keys`` (T, 15) uint32 or None: with a table, dropout (p=0.1)
-    runs on head convs 0..4 of each head (the transition convs and the
-    final pre-detection conv are dropout-free) and the T samples are
-    stacked sample-major on the batch axis of the returned tensors
-    (T*NB, h, w, ch); None runs one dropout-free pass.
-
-    ``return_features=True`` returns the pre-detection-conv activations
-    instead of detection outputs.
-    """
+def _walk_heads(dn_out, skip16, skip8, site_keys: Optional[np.ndarray], block):
+    """The head section's topology, shared by the float and the int8 heads:
+    3 heads of six conv blocks, the transitions, upsample and concat.
+    ``block(name, x, keys)`` runs one conv block, ``keys`` the per-sample
+    dropout keys of its site or None (convs 0..4 of each head drop when a
+    table is given; the transitions and the final conv never do).  With a
+    (T, 15) table the backbone outputs are stacked T times sample-major on
+    the batch axis.  Returns the three pre-detection feature maps."""
     T = 1 if site_keys is None else site_keys.shape[0]
     site = 0
 
@@ -143,13 +129,9 @@ def _heads(
         if drop and site_keys is not None:
             keys = [int(k) for k in site_keys[:, site]]
             site += 1
-        return conv_block(
-            params[name], stats[name], x,
-            drop_rate=DROP_PROB if keys is not None else None,
-            drop_keys=keys, compute_dtype=compute_dtype,
-        )
+        return block(name, x, keys)
 
-    raws = []
+    feats = []
     x = stacked(dn_out)
     for head, skip in ((1, None), (2, skip16), (3, skip8)):
         if skip is not None:
@@ -161,12 +143,50 @@ def _heads(
             x = run_block(f"head{head}_conv{j}", x, drop=j <= _BRANCH_IDX)
             if j == _BRANCH_IDX:
                 branch = x
-        if return_features:
-            raws.append(x)
-        else:
-            raws.append(detection_conv(params[f"det{head}"], x, compute_dtype=compute_dtype))
+        feats.append(x)
         x = branch
-    return tuple(raws)
+    return feats
+
+
+def _heads(
+    params: Dict,
+    stats: Dict,
+    dn_out: torch.Tensor,
+    skip16: torch.Tensor,
+    skip8: torch.Tensor,
+    *,
+    site_keys: Optional[np.ndarray] = None,
+    compute_dtype=torch.float32,
+    return_features: bool = False,
+    capture: Optional[Dict] = None,
+):
+    """Everything after the backbone: 3 det heads + scale transitions.
+
+    ``site_keys`` (T, 15) uint32 or None: with a table, dropout (p=0.1)
+    runs on head convs 0..4 of each head (the transition convs and the
+    final pre-detection conv are dropout-free) and the T samples are
+    stacked sample-major on the batch axis of the returned tensors
+    (T*NB, h, w, ch); None runs one dropout-free pass.
+
+    ``return_features=True`` returns the pre-detection-conv activations
+    instead of detection outputs.  ``capture`` (dict or None): every conv
+    block's post-LeakyReLU output is stored under its block name — what
+    the int8 calibration reduces (``ops.quant.calibrate_mc_amax``).
+    """
+
+    def block(name, x, keys):
+        y = conv_block(params[name], stats[name], x,
+                       drop_rate=DROP_PROB if keys is not None else None,
+                       drop_keys=keys, compute_dtype=compute_dtype)
+        if capture is not None:
+            capture[name] = y
+        return y
+
+    feats = _walk_heads(dn_out, skip16, skip8, site_keys, block)
+    if return_features:
+        return tuple(feats)
+    return tuple(detection_conv(params[f"det{head}"], f, compute_dtype=compute_dtype)
+                 for head, f in enumerate(feats, start=1))
 
 
 def forward(

@@ -12,7 +12,8 @@ whole image and the dropout-bearing heads on its T/N samples.  Two ways:
   independent of T), the buffer is all-reduced once, and every rank
   finalizes the global sums of all three scales into the concatenated
   decoded rows in one launch (``epistemic_finalize_all_scales``, a second
-  kernel) and runs exact NMS.
+  kernel) and runs exact NMS.  With quantized heads (``quantize="int8"``)
+  the rank's samples run the int8 head section (``models.quant``).
 * ``make_mc_sharded_forward`` — the fallback: each rank computes its
   samples' raw heads and all-gathers them, so every rank holds all T
   samples (ch, T, h*w) per scale, for the one-shot epistemic decode.
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from ..models.quant import mc_forward_cf_q
 from ..models.yolov3 import _key_table, mc_forward_cf
 from ..ops import decode as ops_decode
 from ..ops import nms
@@ -43,14 +45,20 @@ def _check_split(T: int, group: Group):
         raise ValueError(f"T={T} does not divide over the {group.size} ranks of the mc axis")
 
 
-def _local_raws(model, group: Group, T: int, fixed_masks, params, stats, img, rng):
+def _local_raws(model, group: Group, T: int, fixed_masks, params, stats, img, rng,
+                qheads=None):
     """This rank's samples of the three raw heads: [(raw_cf (ch, T/N, h*w),
-    (h, w)), ...], from its rows of the full key table."""
+    (h, w)), ...], from its rows of the full key table; with ``qheads`` (the
+    quantized heads of ``ops.quant.quantize_heads``) the backbone outputs
+    quantize at the entry scales and the rank's samples run the int8
+    heads."""
     if img.shape[0] != 1:
         raise ValueError("the mc-sharded path is batch 1")
     keys = local_rows(_key_table(rng, fixed_masks, T), group.rank, group.size)
-    return mc_forward_cf(params, stats, img, spec=model.spec, T=T // group.size, rng=keys,
-                         compute_dtype=model._dtype)
+    kw = dict(spec=model.spec, T=T // group.size, rng=keys, compute_dtype=model._dtype)
+    if qheads is None:
+        return mc_forward_cf(params, stats, img, **kw)
+    return mc_forward_cf_q(qheads, params, stats, img, **kw)
 
 
 def make_mc_sharded_forward(model, group: Group, T: int):
@@ -72,8 +80,8 @@ def make_mc_sharded_forward(model, group: Group, T: int):
 def make_mc_sharded_fused_pipeline(model, group: Group, T: int, *, priors_by_stride,
                                    obj_idx: int, nms_max_boxes: int = 1000,
                                    nms_iou_thresh: float = 0.5, fixed_masks=None):
-    """Build ``fn(params, stats, img (1, H, W, 3) float, rng=None) -> (rows
-    (1, max_out, 21+C), valid (1, max_out))``:
+    """Build ``fn(params, stats, img (1, H, W, 3) float, rng=None,
+    qheads=None) -> (rows (1, max_out, 21+C), valid (1, max_out))``:
 
       per rank:    backbone -> heads on the rank's T/N samples -> the
                    channels-first 1x1 detection conv -> partial moment sums,
@@ -82,22 +90,24 @@ def make_mc_sharded_fused_pipeline(model, group: Group, T: int, *, priors_by_str
       every rank:  one finalize launch with the GLOBAL T, the three scales'
                    rows written concatenated -> exact NMS
 
-    ``fn.decode`` stops before NMS.  ``priors_by_stride``: {stride: (B, 2)
-    tensor on the rank's device}.  ``fixed_masks`` (int seed or None): the
-    constant key table of the single-device fixed-mask runs; ``rng`` is
-    then ignored, else it is a CPU ``torch.Generator`` seeded alike on
-    every rank or a (T, 15) table.  NMS is exact (over every anchor), so
-    there is no certificate to check and no retry."""
+    ``fn.decode`` stops before NMS.  ``qheads`` (None or the quantized
+    heads of ``ops.quant.quantize_heads``): the rank's samples run the int8
+    head section; the sums are float32 either way.  ``priors_by_stride``:
+    {stride: (B, 2) tensor on the rank's device}.  ``fixed_masks`` (int
+    seed or None): the constant key table of the single-device fixed-mask
+    runs; ``rng`` is then ignored, else it is a CPU ``torch.Generator``
+    seeded alike on every rank or a (T, 15) table.  NMS is exact (over
+    every anchor), so there is no certificate to check and no retry."""
     _check_split(T, group)
     C = model.spec.cls_cnt
     n_priors = priors_by_stride[32].shape[0]
 
     @torch.no_grad()
-    def decode(params, stats, img, rng=None) -> torch.Tensor:
+    def decode(params, stats, img, rng=None, qheads=None) -> torch.Tensor:
         """The decoded rows of every anchor, (N_total, 21+C), the same on
         every rank: local sums of the three scales into one packed buffer ->
         one all-reduce -> one finalize launch."""
-        outs = _local_raws(model, group, T, fixed_masks, params, stats, img, rng)
+        outs = _local_raws(model, group, T, fixed_masks, params, stats, img, rng, qheads)
         hws = [hw for _, hw in outs]
         plan = ops_decode.scale_plan(hws, n_priors)
         packed = torch.empty(plan.rows * (21 + C), dtype=torch.float32,
@@ -108,8 +118,8 @@ def make_mc_sharded_fused_pipeline(model, group: Group, T: int, *, priors_by_str
         return epistemic_finalize_all_scales(packed, priors_by_stride, T=T, hws=hws,
                                              cls_cnt=C)[0]
 
-    def call(params, stats, img, rng=None):
-        rows, valid, _ = nms.nms_select(decode(params, stats, img, rng), obj_idx,
+    def call(params, stats, img, rng=None, qheads=None):
+        rows, valid, _ = nms.nms_select(decode(params, stats, img, rng, qheads), obj_idx,
                                         nms_max_boxes, nms_iou_thresh, pre_top_k=0)
         return rows[None], valid[None]
 

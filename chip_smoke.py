@@ -14,9 +14,9 @@ Phases, each printing one JSON line:
 device      card name and power limit (nvidia-smi), torch / CUDA versions
 build       seconds to build the CUDA kernels
 ptxas       registers, spills, static shared memory and warnings of the
-            kernels redesigned for Hopper (fused_stem, fused_res_block,
-            fused_downsample, greedy_nms, epistemic_decode, epistemic_moments),
-            from nvcc -Xptxas -v
+            kernels (fused_stem, fused_res_block, fused_downsample,
+            greedy_nms, epistemic_decode, epistemic_moments, box_decode,
+            epistemic_finalize, quant_epilogue), from nvcc -Xptxas -v
 kernels     each kernel against its plain PyTorch version on the card at the
             main path's shapes; times by CUDA events; NMS also on crafted
             cases (ties, -inf, NaN IoUs, duplicates, dense clusters whose picks
@@ -28,7 +28,12 @@ kernels     each kernel against its plain PyTorch version on the card at the
             as one launch over three scales (the ECP scales and ragged sets)
             equal bit for bit to their per-scale launches concatenated, the
             finalize's packed sums written by the moments kernel through
-            ``out=`` views
+            ``out=`` views; the int8 epilogue torch.equal at the 20 block
+            shapes of an image at T=30 (dropout keys on 15) and of a batch
+            of 11, and on a stack of 70 samples (two launches)
+int8_gemm   each int8 head block's convolution at T=30: im2col +
+            torch._int_mm (exact against a float64 product) beside one
+            cuDNN bf16 F.conv2d of the same shape
 small_ref   the whole pipeline at 64x96 on the card (kernels, cuDNN) against
             the same pipeline on the CPU (plain versions), in float32 and bf16
 main_path   epistemic inference at full width — bayesian, 1024x1920, T=30 —
@@ -60,6 +65,14 @@ main_path_mc_2ranks
             InferenceRunner(mesh_shape={'mc': 2}).run() over 2 frames (bf16),
             against the same split computed here and the one-rank rows; the
             all-gather fallback (use_pallas=False) on one frame
+main_path_int8
+            quantize="int8" through run() with its calibration on 2 frames:
+            epistemic (bayesian, T=30, fixed masks, 3 frames), raws against
+            bf16 within the JAX package's 0.10 of scale; the fused mc
+            pipeline in int8 over a one-rank NCCL group against the
+            single-device int8 rows; batched aleatoric and standard (batch
+            11, 13 frames); ms per image of int8 beside bf16 read in turns,
+            the head sections, epilogue launches, peak memory
 
 Then the card line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
@@ -94,9 +107,10 @@ from bayesian_yolov3_torch.infer.detect import Detector
 from bayesian_yolov3_torch.infer.ecp import bbox_to_ecp_format
 from bayesian_yolov3_torch.infer.runner import InferenceRunner
 from bayesian_yolov3_torch.models import darknet, yolov3
+from bayesian_yolov3_torch.models import quant as mquant
 from bayesian_yolov3_torch.ops import (
-    _build, common, cuda_conv, cuda_decode, cuda_epistemic, cuda_moments, cuda_nms, decode,
-    nms)
+    _build, common, cuda_conv, cuda_decode, cuda_epistemic, cuda_moments, cuda_nms, cuda_quant,
+    decode, nms, quant)
 from bayesian_yolov3_torch.parallel import (
     initialize_distributed, local_rows, make_group, make_mc_sharded_fused_pipeline)
 from bayesian_yolov3_torch.parallel.mesh import Group
@@ -107,6 +121,7 @@ from bayesian_yolov3_torch.train.loop import partition_params
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12  # dense, tensor cores
+INT8_OPS = 1979e12  # dense, tensor cores
 
 IMG = (1024, 1920, 3)
 T = 30
@@ -1054,6 +1069,146 @@ def check_stem(dev, flush):
              "(two cuDNN convolutions plus elementwise passes, space-to-depth included)")
 
 
+# -- the int8 head section ---------------------------------------------------
+
+
+def _int8_blocks():
+    """The 20 conv blocks of the int8 head section at 1024x1920, in the order
+    they run: (name, h, w, k, cin, cout, dropout site or None)."""
+    out, site = [], 0
+    cins = {1: 1024, 2: 256 + 512, 3: 128 + 256}
+    for head, (h, w) in zip((1, 2, 3), SCALES):
+        if head > 1:
+            k, cout = yolov3._TRANS_PLANS[head - 1]
+            out.append((f"trans{head - 1}", *SCALES[head - 2], k,
+                        yolov3._HEAD_PLANS[head - 1][yolov3._BRANCH_IDX][1], cout, None))
+        cin = cins[head]
+        for j, (k, cout) in enumerate(yolov3._HEAD_PLANS[head]):
+            drop = j <= yolov3._BRANCH_IDX
+            out.append((f"head{head}_conv{j}", h, w, k, cin, cout, site if drop else None))
+            site += drop
+            cin = cout
+    return out
+
+
+INT8_BLOCKS = _int8_blocks()
+
+
+def check_quant_epilogue(dev, flush):
+    """The int8 epilogue kernel against its plain version, torch.equal, at
+    the 20 block shapes of one 1024x1920 image: T=30 samples stacked with
+    the fixed table's keys on the 15 dropout sites (the epistemic path), and
+    a batch of 11 without keys (the batched path); plus a stack of 70
+    samples (two launches of 64 and 6 keys).  Accumulators up to 2^27, past
+    float32's exact integers.  Each block's wrapper timed after an L2 flush
+    (ms), alone behind a spin (device_ms), and its plain version; the sums
+    over an image's (or a batch's) 20 launches."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    table = yolov3._fixed_key_table(MC_MASKS, 70)
+    out = {}
+    for label, s, drop_on in (("epistemic_T30", T, True), (f"batched_nb{BATCH}", BATCH, False),
+                              ("stack70", 70, True)):
+        blocks = INT8_BLOCKS if s != 70 else [("small", 5, 7, 1, 128, 128, 0)]
+        recs = []
+        for name, h, w, _, _, cout, site in blocks:
+            m = s * h * w
+            acc = torch.randint(-2 ** 27, 2 ** 27, (m, cout), generator=gen, device=dev,
+                                dtype=torch.int32)
+            dq = torch.rand(cout, generator=gen, device=dev) * 4e-8 + 2e-8
+            bns = torch.rand(cout, generator=gen, device=dev) + 0.5
+            bnb = (torch.rand(cout, generator=gen, device=dev) - 0.5) * 0.6
+            keys = ([int(k) for k in table[:s, site]] if drop_on and site is not None
+                    else None)
+
+            def one():
+                return cuda_quant.quant_epilogue(acc, dq, bns, bnb, 30.0, keys=keys)
+
+            before = cuda_quant.launch_count
+            got = one()
+            check(cuda_quant.launch_count - before == (2 if s == 70 else 1),
+                  f"quant_epilogue({label}, {name}): {cuda_quant.launch_count - before} launches")
+            want = cuda_quant.quant_epilogue_plain(acc, dq, bns, bnb, 30.0, keys=keys)
+            torch.cuda.synchronize()
+            n_diff = int((got != want).sum())
+            check(n_diff == 0, f"quant_epilogue({label}, {name}): {n_diff} of {got.numel()} "
+                               "elements differ from the plain version")
+            check(bool((got == 127).any()) and bool((got < 0).any()),
+                  f"quant_epilogue({label}, {name}): the test values miss saturation or the "
+                  "leaky branch")
+            nbytes = acc.numel() * (4 + 1) + 3 * cout * 4
+            rec = {"block": name, "shape": [m, cout], "dropout": keys is not None,
+                   "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+            if s != 70:
+                rec.update(ms=event_ms(one, 3, flush),
+                           device_ms=event_ms(one, 3, flush, device=True),
+                           plain_ms=event_ms(lambda: cuda_quant.quant_epilogue_plain(
+                               acc, dq, bns, bnb, 30.0, keys=keys), 1, flush))
+            recs.append(rec)
+            del acc, got, want
+        tot = {k: sum(r[k] for r in recs) for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                   "bytes") if k in recs[0]}
+        out[label] = {**tot, "launches": len(recs) if s != 70 else 2}
+        emit("quant_epilogue_blocks", case=label, blocks=recs)
+    main = out["epistemic_T30"]
+    return {
+        "name": "quant_epilogue", "route": "cuda",
+        "source": "bayesian_yolov3_torch/csrc/quant_epilogue.cu",
+        "replaces": "bayesian_yolov3_tpu/ops/quant.py:86 (quant_block's epilogue, which XLA "
+                    "fused into the int8 conv; no pallas_call)",
+        "max_abs_err": 0.0, "ms": main["ms"], "device_ms": main["device_ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "tolerance": "bit for bit (torch.equal)",
+        "device_ms_over_bound": main["device_ms"] / main["bound_ms"], "cases": out,
+        "note": f"ms/device_ms/plain_ms/bound_ms: the 20 launches of one 1024x1920 image at "
+                f"T={T} summed (dropout on 15); cases[batched_nb{BATCH}]: the 20 launches of "
+                "one batch of 11 without dropout; no single PyTorch call computes the hash "
+                "dropout, so library_ms is null",
+    }
+
+
+def int8_gemm(dev, flush):
+    """Each int8 head block's convolution at T=30 (the epistemic path's
+    stack): ``quant.conv2d_int8`` (int8 im2col + ``torch._int_mm``), its two
+    parts alone, and one cuDNN bf16 ``F.conv2d`` of the same shape
+    (channels_last); the first sample's int32 output equal to a float64
+    product of the same operands (exact below 2^53)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rows = []
+    for name, h, w, k, cin, cout, _ in INT8_BLOCKS:
+        x_q = torch.randint(-127, 128, (T, h, w, cin), generator=gen, device=dev,
+                            dtype=torch.int8)
+        w_q = torch.randint(-127, 128, (cout, cin, k, k), generator=gen, device=dev,
+                            dtype=torch.int8)
+        got = quant.conv2d_int8(x_q, w_q)
+        cols = quant._im2col(x_q[:1], k).double()
+        want = cols @ w_q.permute(0, 2, 3, 1).reshape(cout, -1).double().t()
+        check(torch.equal(got[:1].reshape(-1, cout).double(), want),
+              f"int8_gemm {name}: conv2d_int8 differs from the float64 product")
+        del cols, want, got
+        cols = quant._im2col(x_q, k)
+        wmat = w_q.permute(0, 2, 3, 1).reshape(cout, -1)
+        xb = x_q.to(torch.bfloat16).permute(0, 3, 1, 2)  # channels_last view
+        wb = w_q.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        ops = 2 * T * h * w * k * k * cin * cout
+        rows.append({
+            "block": name, "M": T * h * w, "K": k * k * cin, "N": cout,
+            "int8_ms": event_ms(lambda: quant.conv2d_int8(x_q, w_q), 3, flush),
+            "im2col_ms": event_ms(lambda: quant._im2col(x_q, k), 2, flush),
+            "int_mm_ms": event_ms(lambda: torch._int_mm(cols, wmat.t()), 2, flush),
+            "cudnn_bf16_ms": event_ms(lambda: torch.nn.functional.conv2d(
+                xb, wb, padding=k // 2), 3, flush),
+            "int8_bound_ms": ops / INT8_OPS * 1e3, "bf16_bound_ms": ops / BF16_FLOPS * 1e3})
+        del x_q, w_q, cols, xb, wb
+    tot = {k: sum(r[k] for r in rows) for k in rows[0] if k.endswith("_ms")}
+    return {"T": T, "blocks": rows, "total": tot,
+            "int8_over_cudnn_bf16": tot["int8_ms"] / tot["cudnn_bf16_ms"],
+            "note": "each block's convolution over the T=30 stack of one 1024x1920 image; "
+                    "ms: median of 3 CUDA-event readings after an L2 flush (the two parts "
+                    "alone: of 2); int8 = im2col "
+                    "+ _int_mm; the bounds at the dense int8 (1979 TOPS) and bf16 "
+                    "(989 TFLOP/s) peaks"}
+
+
 # --------------------------------------------------------------------------
 # the model, data and checkpoint of the main path
 # --------------------------------------------------------------------------
@@ -1131,6 +1286,7 @@ def reset_counters():
     cuda_epistemic.launch_count = 0
     cuda_decode.launch_count = 0
     cuda_nms.launch_count = 0
+    cuda_quant.launch_count = 0
     for counts in (cuda_conv.launch_counts, cuda_moments.launch_counts):
         for name in counts:
             counts[name] = 0
@@ -1139,8 +1295,8 @@ def reset_counters():
 def read_counters():
     return {"epistemic_decode": cuda_epistemic.launch_count,
             "box_decode": cuda_decode.launch_count,
-            "greedy_nms": cuda_nms.launch_count, **cuda_conv.launch_counts,
-            **cuda_moments.launch_counts}
+            "greedy_nms": cuda_nms.launch_count, "quant_epilogue": cuda_quant.launch_count,
+            **cuda_conv.launch_counts, **cuda_moments.launch_counts}
 
 
 MC_KERNELS = ("epistemic_moments", "epistemic_finalize")  # the mc path's own
@@ -1317,7 +1473,7 @@ def main_path(tmp, dev, n_frames=3):
     runner = InferenceRunner(cfg, seed=0)  # device: the card, by default
     out_dir, launches, bf16_summary = run_and_check(runner, n_frames)
     check(out_dir.endswith("_1"), f"output dir {out_dir} lacks the step suffix")
-    others = ("box_decode", *MC_KERNELS)  # kernels of the batched and the mc paths
+    others = ("box_decode", "quant_epilogue", *MC_KERNELS)  # of the other paths
     check(not any(launches[k] for k in others),
           f"the single-device epistemic main path ran one of {others}: {launches}")
     check(all(n > 0 for k, n in launches.items() if k not in others),
@@ -1575,7 +1731,8 @@ def main_path_mc(tmp, dev, card, runners, params, stats, frames):
             n = len(frames)
             bf16 = dtype == "bfloat16"
             want = {"epistemic_moments": 3 * n, "epistemic_finalize": n, "greedy_nms": n,
-                    "epistemic_decode": 0, "box_decode": 0, "fused_stem": n * bf16,
+                    "epistemic_decode": 0, "box_decode": 0, "quant_epilogue": 0,
+                    "fused_stem": n * bf16,
                     "fused_res_block": 11 * n * bf16, "fused_downsample": 2 * n * bf16,
                     "all_reduce": n}
             check(launches == want, f"main_path_mc {dtype}: launches {launches}, want {want}")
@@ -1803,7 +1960,8 @@ def main_path_mc_2ranks(tmp, dev, card, runner, params, stats):
                                                    f"rank 1 {r1['writes']}")
     for r in ranks:
         want = {"epistemic_moments": 6, "epistemic_finalize": 2, "greedy_nms": 2,
-                "epistemic_decode": 0, "box_decode": 0, "fused_stem": 2, "fused_res_block": 22,
+                "epistemic_decode": 0, "box_decode": 0, "quant_epilogue": 0, "fused_stem": 2,
+                "fused_res_block": 22,
                 "fused_downsample": 4, "all_reduce": 2}
         check(r["launches"] == want, f"rank {r['rank']}: launches {r['launches']}, want {want}")
         check(r["retried"] == 0, "the fused mc path retried NMS")
@@ -1883,6 +2041,7 @@ def check_batched_launches(name, launches, n_batches, bf16):
     check(launches["box_decode"] == n_batches,
           f"{name}: {launches['box_decode']} box_decode launches for {n_batches} batches")
     check(launches["epistemic_decode"] == 0, f"{name}: the epistemic decode ran")
+    check(launches["quant_epilogue"] == 0, f"{name}: the int8 epilogue ran")
     check(launches["greedy_nms"] > 0, f"{name}: no greedy_nms launch")
     conv = (launches["fused_stem"], launches["fused_res_block"], launches["fused_downsample"])
     want = (n_batches, 11 * n_batches, 2 * n_batches) if bf16 else (0, 0, 0)
@@ -2060,6 +2219,210 @@ def timing_batched(runner, frames, dev, card):
             "card": card}
 
 
+# --------------------------------------------------------------------------
+# the int8 head section on the three paths
+# --------------------------------------------------------------------------
+
+INT8_RAW_TOL = 0.10  # max |int8 - bf16| / max |bf16| per scale (the JAX package's bound)
+INT8_CALIB = 2  # quant_calib_images of the int8 runs
+
+
+def _int8_raws_vs_bf16(name, outs_q, outs_b):
+    """int8 raws against the bf16 raws of the same keys: the JAX package's
+    bound (tests/test_quant.py:67), per scale."""
+    errs, corrs = [], []
+    for (q, _), (b, _) in zip(outs_q, outs_b):
+        q, b = q.double().flatten(), b.double().flatten()
+        errs.append(float((q - b).abs().max() / b.abs().max()))
+        corrs.append(float(torch.corrcoef(torch.stack([q, b]))[0, 1]))
+    check(all(e < INT8_RAW_TOL for e in errs) and all(math.isfinite(c) for c in corrs),
+          f"{name}: int8 raws against bf16: max error over scale {errs} (bound {INT8_RAW_TOL})")
+    return {"max_err_over_scale": errs, "corr": corrs}
+
+
+def _alternate_ms(fns, inputs, imgs_per_input, reps=1):
+    """ms per image of each device program in ``fns`` ({label: fn(input)}),
+    read in turns a, b, b, a (``reps`` rounds): each reading one pass over
+    ``inputs`` after a warm-up, CUDA events; the median per label."""
+    for fn in fns.values():
+        fn(inputs[0])
+    torch.cuda.synchronize()
+    order = list(fns) + list(fns)[::-1]
+    readings = {k: [] for k in fns}
+    for _ in range(reps):
+        for label in order:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for inp in inputs:
+                fns[label](inp)
+            end.record()
+            torch.cuda.synchronize()
+            readings[label].append(start.elapsed_time(end) / (len(inputs) * imgs_per_input))
+    return {k: {"ms_per_img": float(np.median(v)), "readings": v} for k, v in readings.items()}
+
+
+def _peak_gb(fn):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def main_path_int8(tmp, dev, card, runner, params, stats, frames):
+    """Epistemic inference with the int8 head section at full width —
+    bayesian, 1024x1920, T=30, bf16 backbone, fixed masks — through
+    InferenceRunner.run() over the main path's 3 frames, calibrating itself
+    on the first 2 (launch counters from just before run() to just after);
+    its raws against the bf16 raws of the same keys; then the fused mc
+    pipeline in int8 over a one-rank NCCL group against the single-device
+    int8 rows (exact NMS); ms per image of int8 beside bf16 read in turns,
+    the head section of each, and peak memory of one frame."""
+    pattern = os.path.join(tmp, "data", "smoke-*-of-*.tfrecord")
+    n = len(frames)
+    kw = dict(nms_max_boxes=MAX_OUT, fixed_mc_masks=MC_MASKS)
+    cfg = make_config(tmp, "smoke", IMG, T, pattern, quantize="int8",
+                      quant_calib_images=INT8_CALIB, nms_pre_top_k=PRE_TOP_K,
+                      out_path=os.path.join(tmp, "out", "smoke_int8"), **kw)
+    q = InferenceRunner(cfg, seed=0)
+    _, launches, summary = run_and_check(q, n)
+    check(q._qheads is not None, "run() did not calibrate the int8 heads")
+    want = {"quant_epilogue": 20 * n, "epistemic_decode": 3 * n, "box_decode": 0,
+            "epistemic_moments": 0, "epistemic_finalize": 0,
+            # the calibration's bf16 passes run the backbone too
+            "fused_stem": n + INT8_CALIB, "fused_res_block": 11 * (n + INT8_CALIB),
+            "fused_downsample": 2 * (n + INT8_CALIB)}
+    check(all(launches[k] == v for k, v in want.items()) and launches["greedy_nms"] >= n,
+          f"main_path_int8: launches {launches}, want {want} and greedy_nms >= {n}")
+    qh = q._qheads
+
+    imgs = [torch.from_numpy(f[None]).to(dev) for f in frames]
+    x = imgs[0].float() / 255.0
+    keys = q.draw_keys()
+    spec = q.spec
+    bf = torch.bfloat16
+    with torch.no_grad():
+        outs_q = mquant.mc_forward_cf_q(qh, params, stats, x, spec=spec, T=T, rng=keys,
+                                        compute_dtype=bf)
+        outs_b = yolov3.mc_forward_cf(params, stats, x, spec=spec, T=T, rng=keys,
+                                      compute_dtype=bf)
+        summary["raws_vs_bf16"] = _int8_raws_vs_bf16("epistemic int8", outs_q, outs_b)
+        del outs_q, outs_b
+
+        def program(r):  # what predict() does, without the copies to the host
+            return lambda img: r._select_certified(r._decoded_rows(params, stats, img, keys))
+
+        bf16_runner = InferenceRunner(dataclasses.replace(cfg, quantize=None), seed=0)
+        summary["ms_per_img"] = _alternate_ms({"bfloat16": program(bf16_runner),
+                                               "int8": program(q)}, imgs, 1)
+        bb, bs = params["backbone"], stats["backbone"]
+        st = {"backbone_ms": event_ms(lambda: darknet.darknet53(bb, bs, x, compute_dtype=bf), 3),
+              "forward_cf_q_ms": event_ms(lambda: mquant.mc_forward_cf_q(
+                  qh, params, stats, x, spec=spec, T=T, rng=keys, compute_dtype=bf), 3),
+              "forward_cf_bf16_ms": event_ms(lambda: yolov3.mc_forward_cf(
+                  params, stats, x, spec=spec, T=T, rng=keys, compute_dtype=bf), 3)}
+        st["heads_int8_ms"] = st["forward_cf_q_ms"] - st["backbone_ms"]
+        st["heads_bf16_ms"] = st["forward_cf_bf16_ms"] - st["backbone_ms"]
+        summary["stages"] = st
+        summary["peak_mem_GB_one_frame"] = {
+            "int8": _peak_gb(lambda: program(q)(imgs[0])),
+            "bfloat16": _peak_gb(lambda: program(bf16_runner)(imgs[0]))}
+    summary["mc_one_rank_nccl"] = _mc_int8(tmp, dev, cfg, q, params, stats, imgs)
+    return q, launches, {"frames": n, "card": card, **summary}
+
+
+def _mc_int8(tmp, dev, cfg, q, params, stats, imgs):
+    """The fused mc pipeline with the int8 heads over a one-rank NCCL group:
+    launches and all-reduces per frame, its rows against the single-device
+    int8 runner's exact-NMS rows (SPLIT_TOL), ms per frame."""
+    initialize_distributed("nccl", "file://" + os.path.join(tmp, "nccl_store_int8"),
+                           world_size=1, rank=0, device=dev)
+    try:
+        pipe = mc_pipeline(q, make_group({"mc": 1}))
+        xs = [img.float() / 255.0 for img in imgs]
+        n = len(xs)
+        torch.cuda.synchronize()
+        reset_counters()
+        with count_all_reduces() as all_reduces:
+            results = [pipe(params, stats, x, qheads=q._qheads) for x in xs]
+        torch.cuda.synchronize()
+        launches = {**read_counters(), "all_reduce": len(all_reduces)}
+        want = {"quant_epilogue": 20 * n, "epistemic_moments": 3 * n, "epistemic_finalize": n,
+                "greedy_nms": n, "epistemic_decode": 0, "all_reduce": n}
+        check(all(launches[k] == v for k, v in want.items()),
+              f"mc int8: launches {launches}, want {want}")
+        ref = InferenceRunner(dataclasses.replace(cfg, nms_pre_top_k=0), seed=0)
+        ref._qheads = q._qheads
+        agree = []
+        for img, (rows, valid) in zip(imgs, results):
+            want_rows, want_valid = ref.predict(params, stats, img.cpu().numpy())
+            check(np.array_equal(valid.cpu().numpy(), want_valid),
+                  "mc int8: valid masks differ from the single-device int8 runner's")
+            agree.append(split_agree("mc int8", rows.cpu(), torch.from_numpy(want_rows)))
+        ms = event_ms(lambda: pipe(params, stats, xs[0], qheads=q._qheads), 3)
+        peak = _peak_gb(lambda: pipe(params, stats, xs[0], qheads=q._qheads))
+    finally:
+        dist.destroy_process_group()
+    return {"launches_per_frame": {k: v / n for k, v in launches.items()},
+            "vs_single_device": agree, "ms_per_frame": ms, "peak_mem_GB_one_frame": peak}
+
+
+def main_path_batched_int8(tmp, dev, card, b_runner, b_frames):
+    """Batched aleatoric and standard inference with the int8 head section,
+    1024x1920, batch 11, through run() over the batched path's 13 frames
+    (calibrating on the first 2); aleatoric int8 raws against bf16; ms per
+    image of the device program, int8 beside bf16 in turns, the head
+    section of each, and peak memory of one batch."""
+    pattern = os.path.join(tmp, "data_batched", "smoke-*-of-*.tfrecord")
+    n_batches = -(-N_BATCHED_FRAMES // BATCH)
+    out, runners = {}, {}
+    for model, run_id in (("aleatoric", "ale"), ("standard", "std")):
+        cfg = make_batched_config(tmp, run_id, model, pattern, quantize="int8",
+                                  quant_calib_images=INT8_CALIB,
+                                  out_path=os.path.join(tmp, "out", f"{run_id}_int8"))
+        r = runners[model] = InferenceRunner(cfg, seed=0)
+        _, launches, out[model] = run_and_check(r, N_BATCHED_FRAMES)
+        calib = INT8_CALIB  # one bf16 forward per calibration image
+        want = {"quant_epilogue": 20 * n_batches, "box_decode": n_batches,
+                "epistemic_decode": 0, "epistemic_moments": 0,
+                "fused_stem": n_batches + calib, "fused_res_block": 11 * (n_batches + calib),
+                "fused_downsample": 2 * (n_batches + calib)}
+        check(all(launches[k] == v for k, v in want.items()) and launches["greedy_nms"] > 0,
+              f"batched {model} int8: launches {launches}, want {want}")
+    r = runners["aleatoric"]
+    params, stats, _ = r.load_state()
+    x_u8 = torch.from_numpy(np.stack(b_frames[:BATCH])).to(dev)
+    x = x_u8.float() / 255.0
+    bf = torch.bfloat16
+    with torch.no_grad():
+        # on the calibration frames, as the JAX package's batched test holds it
+        xc = x[:INT8_CALIB]
+        outs_q = mquant.forward_cf_q(r._qheads, params, stats, xc, spec=r.spec,
+                                     compute_dtype=bf)
+        outs_b = yolov3.forward_cf(params, stats, xc, spec=r.spec, compute_dtype=bf)
+        out["aleatoric"]["raws_vs_bf16"] = _int8_raws_vs_bf16("batched int8", outs_q, outs_b)
+        del outs_q, outs_b
+
+        def program(runner):  # what predict() does, without the copies to the host
+            return lambda img: runner._select_certified(
+                runner._decoded_rows(params, stats, img, None))
+
+        fns = {"bfloat16": program(b_runner), "int8": program(r)}
+        out["ms_per_img"] = _alternate_ms(fns, [x_u8, x_u8], BATCH)
+        bb, bs = params["backbone"], stats["backbone"]
+        st = {"backbone_ms": event_ms(lambda: darknet.darknet53(bb, bs, x, compute_dtype=bf), 3),
+              "forward_cf_q_ms": event_ms(lambda: mquant.forward_cf_q(
+                  r._qheads, params, stats, x, spec=r.spec, compute_dtype=bf), 3),
+              "forward_cf_bf16_ms": event_ms(lambda: yolov3.forward_cf(
+                  params, stats, x, spec=r.spec, compute_dtype=bf), 3)}
+        st["heads_int8_ms"] = st["forward_cf_q_ms"] - st["backbone_ms"]
+        st["heads_bf16_ms"] = st["forward_cf_bf16_ms"] - st["backbone_ms"]
+        out["stages_per_batch"] = st
+        out["peak_mem_GB_one_batch"] = {k: _peak_gb(lambda: fn(x_u8)) for k, fn in fns.items()}
+    return {"frames": N_BATCHED_FRAMES, "batch_size": BATCH, "card": card, **out}
+
+
 def _numbers(d):
     """The flat numbers of a phase's result (no nested dicts, lists or flags)."""
     return {k: v for k, v in d.items()
@@ -2071,7 +2434,7 @@ def _peaks(summary):
             if isinstance(run, dict) and "peak_mem_GB" in run}
 
 
-def summarize(main_summary, timings, split, mc, mc2, b_summary, b_timings):
+def summarize(main_summary, timings, split, mc, mc2, b_summary, b_timings, gemm, int8):
     """One compact line of the numbers each phase measured (ms per frame,
     stages, all-reduce, peak memory of every run, launches per frame),
     printed just before the kernels line so that the end of the output
@@ -2094,6 +2457,20 @@ def summarize(main_summary, timings, split, mc, mc2, b_summary, b_timings):
         "per_rank": [{**_numbers(r), "run_loop": r["loop"]} for r in mc2["per_rank"]]}
     out["batched"] = [{"path": t["path"], "compute_dtype": t["compute_dtype"],
                        "png_decoder": t["png_decoder"], **_numbers(t)} for t in b_timings]
+    epi, bat = int8["epistemic"], int8["batched"]
+    out["int8"] = {
+        "gemm_total_ms": gemm["total"], "int8_over_cudnn_bf16": gemm["int8_over_cudnn_bf16"],
+        "epistemic": {"ms_per_img": {k: v["ms_per_img"] for k, v in epi["ms_per_img"].items()},
+                      **epi["stages"], "peak_mem_GB_one_frame": epi["peak_mem_GB_one_frame"],
+                      "peak_mem_GB_run": epi["peak_mem_GB"], "launches": epi["launches"],
+                      "raws_max_err_over_scale": epi["raws_vs_bf16"]["max_err_over_scale"]},
+        "mc_one_rank_nccl": {k: v for k, v in epi["mc_one_rank_nccl"].items()
+                             if k != "vs_single_device"},
+        "batched_aleatoric": {
+            "ms_per_img": {k: v["ms_per_img"] for k, v in bat["ms_per_img"].items()},
+            **bat["stages_per_batch"], "peak_mem_GB_one_batch": bat["peak_mem_GB_one_batch"],
+            "launches": bat["aleatoric"]["launches"],
+            "raws_max_err_over_scale": bat["aleatoric"]["raws_vs_bf16"]["max_err_over_scale"]}}
     return out
 
 
@@ -2123,16 +2500,18 @@ def main():
                     if any(k in ln for k in ("registers", "spill", "entry function", "arning"))]
              for name in ("fused_stem", "fused_res_block", "fused_downsample", "greedy_nms",
                           "epistemic_decode", "epistemic_moments", "box_decode",
-                          "epistemic_finalize")}
+                          "epistemic_finalize", "quant_epilogue")}
     emit("ptxas", **ptxas)
 
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)  # > 50 MB L2
     kernels = [check_epistemic(dev, flush), check_nms(dev), check_stem(dev, flush),
                check_res_block(dev, flush), check_downsample(dev, flush),
                check_box_decode(dev, flush), check_epistemic_moments(dev, flush),
-               check_epistemic_finalize(dev, flush)]
-    del flush
+               check_epistemic_finalize(dev, flush), check_quant_epilogue(dev, flush)]
     emit("kernels", card=card, kernels=kernels)
+    gemm = int8_gemm(dev, flush)
+    emit("int8_gemm", card=card, **gemm)
+    del flush
     if sys.argv[1:] == ["--kernels"]:  # the kernel checks alone: no result line
         return 0
 
@@ -2144,6 +2523,9 @@ def main():
         timings = [timing(r, params, stats, frames, dev, card) for r in (runner32, runner)]
         for t in timings:
             emit("timing", **t)
+        q_runner, int8_launches, int8_epi = main_path_int8(tmp, dev, card, runner, params,
+                                                           stats, frames)
+        del q_runner
         split = mc_split(runner, params, stats, frames[0], dev)
         emit("mc_split", card=card, **split)
         mc_summary, mc_launches = main_path_mc(tmp, dev, card, (runner, runner32), params,
@@ -2157,15 +2539,21 @@ def main():
         b_timings = [timing_batched(r, b_frames, dev, card) for r in (b_runner32, b_runner)]
         for t in b_timings:
             emit("timing", **t)
+        int8_batched = main_path_batched_int8(tmp, dev, card, b_runner, b_frames)
+        int8 = {"epistemic": int8_epi, "batched": int8_batched}
+        emit("main_path_int8", card=card, **int8)
 
     # launches: each kernel's count from its own path's run — the epistemic
     # bf16 main path; for box_decode the batched aleatoric bf16 run; for the
-    # moments and finalize kernels the bf16 run of the mc pipeline
+    # moments and finalize kernels the bf16 run of the mc pipeline; for the
+    # int8 epilogue the epistemic int8 run
     for k in kernels:
-        path = {"box_decode": b_launches, **{m: mc_launches for m in MC_KERNELS}}
+        path = {"box_decode": b_launches, "quant_epilogue": int8_launches,
+                **{m: mc_launches for m in MC_KERNELS}}
         k["launches"] = path.get(k["name"], launches)[k["name"]]
     emit("summary", card=card, ptxas=ptxas, smoke_wall_s=time.time() - t_start,
-         **summarize(summary, timings, split, mc_summary, mc2, b_summary, b_timings))
+         **summarize(summary, timings, split, mc_summary, mc2, b_summary, b_timings, gemm,
+                     int8))
     emit("done", seconds=time.time() - t_start)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -357,7 +357,7 @@ def _mc_rank(rank, store, out):
         group = make_group({"mc": WORLD})
         per = MC_T // WORLD
 
-        def local_raws(model, group, T, fixed_masks, params, stats, img, rng):
+        def local_raws(model, group, T, fixed_masks, params, stats, img, rng, qheads=None):
             return [(r[:, rank * per:(rank + 1) * per].contiguous(), hw)
                     for r, hw in zip(_frame_raws(int(img)), HWS)]
 

@@ -54,7 +54,9 @@ def test_every_module_is_listed():
                    "bayesian_yolov3_torch.data.pipeline", "bayesian_yolov3_torch.convert",
                    "bayesian_yolov3_torch.ops.cuda_moments", "bayesian_yolov3_torch.parallel",
                    "bayesian_yolov3_torch.parallel.mesh",
-                   "bayesian_yolov3_torch.parallel.epistemic"):
+                   "bayesian_yolov3_torch.parallel.epistemic",
+                   "bayesian_yolov3_torch.ops.quant", "bayesian_yolov3_torch.ops.cuda_quant",
+                   "bayesian_yolov3_torch.models.quant"):
         assert needed in MODULES
 
 
@@ -69,7 +71,8 @@ def test_kernel_sources_are_found_without_a_compiler():
 
     assert _build.kernel_names() == ["box_decode", "epistemic_decode", "epistemic_finalize",
                                      "epistemic_moments", "fused_downsample",
-                                     "fused_res_block", "fused_stem", "greedy_nms"]
+                                     "fused_res_block", "fused_stem", "greedy_nms",
+                                     "quant_epilogue"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert _build.build_dir().startswith(os.path.join(REPO, "build"))

@@ -483,7 +483,8 @@ def test_cli_single_process_device(monkeypatch):
     (dict(mesh_shape={"mc": 2}, fixed_mc_masks=7, use_pallas=False), ValueError,
      "fixed_mc_masks"),
     (dict(mesh_shape={"mc": 2}, packed_host_input=True), ValueError, "packed_host_input"),
-    (dict(mesh_shape={"mc": 2}, quantize="int8"), NotImplementedError, "int8"),
+    (dict(mesh_shape={"mc": 2}, quantize="int8", use_pallas=False), ValueError,
+     "fused pipeline"),
     (dict(mesh_shape={"dp": 2}), NotImplementedError, "dp mesh axis"),
     (dict(mesh_shape={"sp": 2}), NotImplementedError, "sp mesh axis"),
     (dict(mesh_shape={"mc": 2}, model="aleatoric", inference_mode=False), ValueError,
