@@ -22,7 +22,17 @@ The T samples of each image split over N cards, one process per card:
 
 (T a multiple of N; each rank computes on ``cuda:{LOCAL_RANK}`` over NCCL
 unless ``--device`` names another device; every rank reads every frame;
-rank 0 logs progress and writes the JSON.)
+rank 0 logs progress and writes the JSON.)  The image rows split over N
+cards, one band per card, with a one-row halo exchange around every 3x3
+conv (H a multiple of 32 x N; less device memory per card):
+
+    torchrun --nproc_per_node N -m bayesian_yolov3_torch.cli.inference_epistemic \
+        --set mesh_shape='{"sp": N}' ...
+
+and both at once over a x b cards (rank = sp index x b + mc index):
+
+    torchrun --nproc_per_node 4 -m bayesian_yolov3_torch.cli.inference_epistemic \
+        --set mesh_shape='{"sp": 2, "mc": 2}' ...
 """
 
 import logging

@@ -15,6 +15,18 @@ convolution in true float32; ``--set packed_host_input=true`` feeds
 host-packed uint8 planes instead of NHWC images; ``--set quantize=int8``
 runs the head section in int8, calibrated on the first
 ``quant_calib_images`` frames (2 by default).
+
+The image batch splits over N cards, one process per card (batch_size a
+multiple of N; each rank runs its batch_size/N images with exact NMS, the
+rows are gathered, rank 0 writes the JSON; composes with int8):
+
+    torchrun --nproc_per_node N -m bayesian_yolov3_torch.cli.inference_standard_yolov3 \\
+        --set mesh_shape='{"dp": N}' --set run_id=... --set data.file_pattern=...
+
+or the image rows, one band per card with a one-row halo exchange around
+every 3x3 conv (H a multiple of 32 x N): ``--set mesh_shape='{"sp": N}'``.
+Each rank computes on ``cuda:{LOCAL_RANK}`` over NCCL unless ``--device``
+names another device.
 """
 
 import logging

@@ -30,15 +30,29 @@ space-to-depth uint8 planes (``data.pipeline.pack_planes_host``) instead of
 NHWC images, in both branches; ``predict()`` keeps taking NHWC images and
 refuses that configuration, as the JAX runner does.
 
-``mesh_shape={'mc': N}`` (N > 1, epistemic, batch 1) splits the T samples
-over the N ranks of an initialised process group (``parallel/``), one
-runner per rank, every rank reading the same frames and drawing the same
-keys: ``use_pallas=True`` takes the fused pipeline (partial moments,
-all-reduce, finalize; exact NMS, so no retry), ``use_pallas=False`` the
-all-gather fallback (the one-shot decode of the gathered samples, certified
-NMS and the exact retry).  Only rank 0 writes JSON.  ``{'mc': 1}`` is the
-single-device path.  The ``dp`` and ``sp`` axes are not ported yet and
-raise here.
+Multi-rank axes (``mesh_shape``, ``parallel/``), one runner per rank over
+an initialised process group, every rank reading the same frames and
+drawing the same keys; only rank 0 writes JSON:
+
+* ``{'mc': N}`` (epistemic, batch 1) splits the T samples over the N
+  ranks: ``use_pallas=True`` takes the fused pipeline (partial moments,
+  all-reduce, finalize; exact NMS, so no retry), ``use_pallas=False`` the
+  all-gather fallback (the one-shot decode of the gathered samples,
+  certified NMS and the exact retry).
+* ``{'dp': N}`` (batched, not epistemic) splits the image batch: each rank
+  runs the whole batched pipeline on its NB/N images with exact NMS, then
+  the rows are all-gathered; the bayesian variant's rank r drops out with
+  row r of an (N, 15) key table.  Composes with ``quantize="int8"``.
+* ``{'sp': N}`` (any variant) splits the image rows into one band per rank,
+  every 3x3 conv exchanging its halo rows; the raw heads are gathered and
+  decoded by the single-device kernels, then certified NMS with the exact
+  retry.  ``{'sp': a, 'mc': b}`` (epistemic) also splits the T samples:
+  the gathered raws of the rank's T/b samples go through the fused mc
+  pipeline's back half (moments, one all-reduce over the mc subgroup, one
+  finalize).  Epistemic sp is batch 1; H must be a multiple of 32 x a.
+
+An axis of size 1 is the single-device path.  The refusals follow the JAX
+runner's, with its exception types.
 
 ``quantize="int8"`` runs the head section in int8 on all three paths
 (``models.quant``: ``mc_forward_cf_q`` on the epistemic path,
@@ -73,7 +87,17 @@ from ..ops import nms
 from ..ops.cuda_decode import fused_box_decode_all_scales
 from ..ops.cuda_epistemic import fused_epistemic_decode_cf_batched
 from ..ops.quant import calibrate_forward_amax, calibrate_mc_amax, quantize_heads
-from ..parallel import make_group, make_mc_sharded_forward, make_mc_sharded_fused_pipeline
+from ..parallel import (
+    make_dp_batched_pipeline,
+    make_groups,
+    make_mc_sharded_forward,
+    make_mc_sharded_fused_pipeline,
+    sharded_moments_rows,
+    spatial_forward_raws,
+    spatial_mc_raws,
+    world_group,
+)
+from ..parallel.spatial import check_height
 from ..train.checkpoints import CheckpointStore
 from ..train.loop import merge_params, partition_params
 from .ecp import bbox_to_ecp_format
@@ -96,18 +120,12 @@ class InferenceRunner:
         self.spec = self.model.spec
         self.epistemic = self.spec.variant == Variant.BAYESIAN and config.inference_mode
         self._qheads = None  # the int8 head section, once calibrated
-        if config.quantize is not None:
-            if config.quantize != "int8":
-                raise ValueError(f"unknown quantize mode {config.quantize!r}")
-            if (config.mesh_shape or {}).get("mc", 0) > 1 and not config.use_pallas:
-                raise ValueError(
-                    "quantize='int8' over the mc axis requires the fused pipeline "
-                    "(use_pallas=True); the all-gather fallback does not run the int8 "
-                    "heads")
+        if config.quantize is not None and config.quantize != "int8":
+            raise ValueError(f"unknown quantize mode {config.quantize!r}")
         # run() then feeds host-packed planes to the fused early backbone
         self.packed = bool(config.packed_host_input)
         # the dropout keys of every batch come from this CPU generator, seeded
-        # alike on every rank of an mc group: every rank draws the same table
+        # alike on every rank of a group: every rank draws the same table
         self.rng = torch.Generator(device="cpu")
         self.rng.manual_seed(seed)
         self.retried = 0  # batches the last run() re-ran with exact NMS
@@ -116,25 +134,73 @@ class InferenceRunner:
             stride: torch.from_numpy(p).to(self.device)
             for stride, p in priors_as_array(self.model.priors).items()
         }
-        self.group = None  # the mc axis's ranks, or None on a single device
+        self.group = None  # every rank of a multi-rank run, or None on a single device
         self._mc_fused = None
         self._mc_forward = None
+        self._dp = None  # the dp pipeline
+        self._sp = None  # the sp axis's group
+        self._sp_mc = None  # the mc axis's group beside sp
         self._setup_mesh(config.mesh_shape or {})
 
     def _setup_mesh(self, shape):
-        cfg = self.config
         unknown = set(shape) - {"mc", "dp", "sp"}
         if unknown:
             raise ValueError(f"unknown mesh axes {sorted(unknown)}; known: mc, dp, sp")
         if shape.get("dp", 0) > 1:
-            raise NotImplementedError("the dp mesh axis belongs to the data-parallel "
-                                      "batched-inference slice")
-        if shape.get("sp", 0) > 1:
-            raise NotImplementedError("the sp mesh axis belongs to the spatial "
-                                      "(halo exchange) slice")
-        n = shape.get("mc", 0)
-        if n <= 1:
-            return
+            self._setup_dp(shape)
+        elif shape.get("sp", 0) > 1:
+            self._setup_sp(shape["sp"], shape.get("mc", 0))
+        elif shape.get("mc", 0) > 1:
+            self._setup_mc(shape["mc"])
+
+    def _setup_dp(self, shape):
+        cfg = self.config
+        n = shape["dp"]
+        if self.epistemic:
+            raise ValueError("the dp axis shards the image batch; epistemic inference is "
+                             "batch-1 (shard T with {'mc': N} instead)")
+        if len(shape) > 1:
+            raise ValueError("dp does not compose with sp/mc axes")
+        if cfg.batch_size % n:
+            raise ValueError(f"batch_size {cfg.batch_size} must divide over the dp axis ({n})")
+        if self.packed:
+            raise ValueError("packed_host_input is a single-device feed; the dp path takes "
+                             "plain NHWC batches")
+        self.group = make_groups({"dp": n})["dp"]
+        self._dp = make_dp_batched_pipeline(
+            self.model, self.group, priors_by_stride=self._priors,
+            obj_idx=self.spec.obj_idx(epistemic=False), nms_max_boxes=cfg.nms_max_boxes,
+            nms_iou_thresh=cfg.nms_iou_thresh, standard_test_dropout=cfg.standard_test_dropout)
+
+    def _setup_sp(self, n, mc):
+        cfg = self.config
+        shape = {"sp": n}
+        if mc > 1:
+            # AssertionError, as the JAX runner's asserts raise (explicit, so
+            # that python -O keeps the check)
+            if not self.epistemic:
+                raise AssertionError("mc axis requires the epistemic runner")
+            if cfg.T % mc:
+                raise AssertionError("T must divide evenly over the mc axis")
+            shape["mc"] = mc
+        if cfg.fixed_mc_masks is not None:
+            raise ValueError(
+                "fixed_mc_masks composes with the single-device epistemic paths and the "
+                "mc-sharded FUSED pipeline (use_pallas); the sp mesh draws its keys per call")
+        if cfg.quantize is not None:
+            raise ValueError(
+                "quantize='int8' does not compose with the sp (spatial) mesh: the quantized "
+                "section runs on the gathered head inputs, which the sp axis shards")
+        if self.packed:
+            raise ValueError("packed_host_input is a single-device feed; the sp path takes "
+                             "NHWC images")
+        check_height(cfg.full_img_size[0], n)
+        groups = make_groups(shape)
+        self.group = world_group()
+        self._sp, self._sp_mc = groups["sp"], groups.get("mc")
+
+    def _setup_mc(self, n):
+        cfg = self.config
         if not self.epistemic:
             raise ValueError("the mc axis splits the MC samples of epistemic inference "
                              "(bayesian, inference_mode)")
@@ -143,12 +209,17 @@ class InferenceRunner:
         if self.packed:
             raise ValueError("packed_host_input is a single-device feed; the mc path "
                              "takes NHWC images")
+        if cfg.quantize is not None and not cfg.use_pallas:
+            raise ValueError(
+                "quantize='int8' over the mc axis requires the fused pipeline "
+                "(use_pallas=True); the all-gather fallback does not run the int8 "
+                "heads")
         if cfg.fixed_mc_masks is not None and not cfg.use_pallas:
             raise ValueError(
                 "fixed_mc_masks composes with the single-device epistemic paths and the "
                 "mc-sharded FUSED pipeline (use_pallas); the all-gather fallback draws "
                 "its keys per call")
-        self.group = make_group({"mc": n})
+        self.group = make_groups({"mc": n})["mc"]
         if cfg.use_pallas:
             self._mc_fused = make_mc_sharded_fused_pipeline(
                 self.model, self.group, cfg.T, priors_by_stride=self._priors,
@@ -210,18 +281,21 @@ class InferenceRunner:
     def device_batch_size(self) -> int:
         """Largest image batch one pipeline call takes: the image batch
         folds onto the anchor axis of the epistemic decode, onto the batch
-        axis of the batched forward; the mc path is batch 1."""
-        return 1 if self.group is not None else self.config.batch_size
+        axis of the batched forward (split over the ranks under dp); the
+        epistemic mc and sp paths are batch 1."""
+        return 1 if self.epistemic and self.group is not None else self.config.batch_size
 
     def draw_keys(self, gen: Optional[torch.Generator] = None) -> Optional[np.ndarray]:
         """uint32 dropout keys for one batch, drawn from ``gen`` (default:
         the runner's generator): epistemic — a (T, 15) table, the constant
-        one of ``fixed_mc_masks`` if set; batched — a (1, 15) table where
-        the bayesian variant's dropout is active, else None."""
+        one of ``fixed_mc_masks`` if set; batched — where the bayesian
+        variant's dropout is active a (1, 15) table, an (N, 15) one over a
+        dp group of N (row r for rank r), else None."""
         gen = self.rng if gen is None else gen
         if self.epistemic:
             return _key_table(gen, self.config.fixed_mc_masks, self.config.T)
-        return _batch_keys(self.spec, gen, self.config.standard_test_dropout)
+        return _batch_keys(self.spec, gen, self.config.standard_test_dropout,
+                           n=1 if self._dp is None else self.group.size)
 
     @torch.no_grad()
     def _decoded_rows(self, params, stats, images, keys):
@@ -231,20 +305,34 @@ class InferenceRunner:
         on the batched path, one a scale on the epistemic path).  With
         ``packed_host_input`` ``images`` is the host-packed uint8 planes
         (nb, 16, L); the scaling then happens inside the backbone."""
+        if self._dp is not None:
+            raise ValueError("the dp pipeline decodes and selects on each rank; call "
+                             "predict() or run()")
         packed_hw = tuple(self.config.full_img_size[:2]) if self.packed else None
         imgs = images if self.packed else images.float() / 255.0
         qh = self._qheads  # the int8 forwards take the float ones' arguments and qh
+        dtype = self.model._dtype
         if not self.epistemic:
             kw = dict(spec=self.spec, rng=keys,
                       standard_test_dropout=self.config.standard_test_dropout,
-                      compute_dtype=self.model._dtype, packed_hw=packed_hw)
-            outs = (forward_cf(params, stats, imgs, **kw) if qh is None
-                    else forward_cf_q(qh, params, stats, imgs, **kw))
+                      compute_dtype=dtype)
+            if self._sp is not None:
+                outs = spatial_forward_raws(params, stats, imgs, group=self._sp, **kw)
+            elif qh is None:
+                outs = forward_cf(params, stats, imgs, packed_hw=packed_hw, **kw)
+            else:
+                outs = forward_cf_q(qh, params, stats, imgs, packed_hw=packed_hw, **kw)
             return fused_box_decode_all_scales(outs, self._priors, spec=self.spec)
         nb = imgs.shape[0]
         if self._mc_fused is not None:
             return self._mc_fused.decode(params, stats, imgs, keys, qheads=qh)[None]
-        if self._mc_forward is not None:
+        if self._sp is not None:
+            outs = spatial_mc_raws(params, stats, imgs, keys, spec=self.spec, group=self._sp,
+                                   T=self.config.T, compute_dtype=dtype, mc=self._sp_mc)
+            if self._sp_mc is not None:
+                return sharded_moments_rows(outs, self._sp_mc, self.config.T, self._priors,
+                                            self.spec.cls_cnt)[None]
+        elif self._mc_forward is not None:
             outs = self._mc_forward(params, stats, imgs, keys)
         else:
             kw = dict(spec=self.spec, T=self.config.T, rng=keys,
@@ -285,16 +373,28 @@ class InferenceRunner:
         return rows, valid, True
 
     def _launch(self, params, stats, images, keys):
-        """Launch one batch's device program (asynchronous); returns
-        ``finish() -> (rows, valid, retried)``, which waits for it.  The
-        fused mc pipeline runs its own exact NMS (no retry); every other
-        path decodes here and takes the certified NMS in ``finish``."""
-        if self._mc_fused is not None:
-            rows, valid = self._mc_fused(params, stats, images.float() / 255.0, keys,
-                                         qheads=self._qheads)
+        """Launch one batch's device program (asynchronous) on ``images``,
+        the batch on the runner's device as ``_to_device`` puts it there;
+        returns ``finish() -> (rows, valid, retried)``, which waits for it
+        (the whole batch's rows under dp too).  The
+        fused mc pipeline and the dp pipeline run their own exact NMS (no
+        retry); every other path decodes here and takes the certified NMS
+        in ``finish``."""
+        fused = self._mc_fused or self._dp  # exact NMS of their own
+        if fused is not None:
+            rows, valid = fused(params, stats, images.float() / 255.0, keys,
+                                qheads=self._qheads)
             return lambda: (rows, valid, False)
         flat = self._decoded_rows(params, stats, images, keys)
         return lambda: self._select_certified(flat)
+
+    def _to_device(self, images):
+        """A uint8 host batch on the runner's device; under dp only the
+        rank's share of it (``_dp.shard``), which is all its pipeline reads."""
+        images = np.asarray(images)
+        if self._dp is not None:
+            images = self._dp.shard(images)
+        return torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
 
     def _device_pipeline(self, params, stats, images, keys, *, pre_top_k):
         """The whole device program: uint8 batch -> (rows, valid, cert)."""
@@ -319,8 +419,7 @@ class InferenceRunner:
                 "call calibrate_int8(params, stats, images) once before predict()")
         if keys is None:
             keys = self.draw_keys()
-        images_d = torch.as_tensor(np.asarray(images)).to(self.device)
-        rows, valid, _ = self._launch(params, stats, images_d, keys)()
+        rows, valid, _ = self._launch(params, stats, self._to_device(images), keys)()
         return rows.cpu().numpy(), valid.cpu().numpy()
 
     # -- host loop -------------------------------------------------------
@@ -329,12 +428,12 @@ class InferenceRunner:
         cfg = self.config
         params, stats, step = self.load_state()
         out_dir = f"{out_path or cfg.out_path}_{step}"
-        # refuses to overwrite an earlier run's output; over an mc group rank 0
+        # refuses to overwrite an earlier run's output; over a group rank 0
         # writes, and every rank refuses together (no rank left waiting in a
         # collective that the others never reach)
         fresh = not os.path.exists(out_dir)
         if self.group is not None and not self.group.all_true(fresh, self.device):
-            raise FileExistsError(f"{out_dir} exists (seen by a rank of the mc group)")
+            raise FileExistsError(f"{out_dir} exists (seen by a rank of the group)")
         if self.rank == 0:
             os.makedirs(out_dir)
 
@@ -375,12 +474,13 @@ class InferenceRunner:
                 if bsz < batch_size:  # pad the final partial batch
                     pad = np.repeat(images[-1:], batch_size - bsz, axis=0)
                     images = np.concatenate([images, pad], axis=0)
-                # launch this batch's forward + decode BEFORE fetching the
-                # previous one's results: launches are asynchronous, the
-                # certificate check and the fetch in drain() synchronise
-                finish = self._launch(
-                    params, stats, torch.from_numpy(images).to(self.device),
-                    self.draw_keys())
+                # every rank reads the same batches (a dp rank copies and
+                # computes its share alone, an sp rank its band); launch this
+                # batch's forward + decode BEFORE fetching the previous one's
+                # results: launches are asynchronous, the certificate check
+                # and the fetch in drain() synchronise
+                finish = self._launch(params, stats, self._to_device(images),
+                                      self.draw_keys())
                 names = [f.decode() if isinstance(f, bytes) else f
                          for f in batch["filename"]]
                 if inflight is not None:

@@ -227,6 +227,7 @@ def darknet53(
     fast_stem: bool = True,
     fused_early=None,
     packed_hw=None,
+    band=None,
 ):
     """Run the backbone.  Returns (out_s32, skip_s16, skip_s8, stats).
 
@@ -244,10 +245,21 @@ def darknet53(
     ``packed_hw=(H, W)``: ``x`` is host-packed space-to-depth channels-first
     uint8 planes (``data.pipeline.pack_planes_host``) instead of an NHWC
     image; implies the fused branch.
+
+    ``band`` (``parallel.spatial.Band``): ``x`` is an sp rank's band of
+    image rows and every conv block exchanges its halo rows with the
+    neighbouring ranks (``ops.common.conv_block``).  The backbone then runs
+    the plain stem and no fused kernel, which assume the whole image (the
+    JAX package's sp path runs unfused too); the result is the band's rows
+    of each map.
     """
     if training:
         raise NotImplementedError("backbone batch-statistics BN belongs to the training slice")
-    if packed_hw is not None:
+    if band is not None:
+        if fused_early or packed_hw is not None:
+            raise ValueError("an sp band runs the unfused backbone on NHWC images")
+        fused_early = fast_stem = False
+    elif packed_hw is not None:
         fused_early = True
     elif fused_early is None:
         fused_early = _fused_early_auto(x, compute_dtype)
@@ -255,7 +267,7 @@ def darknet53(
     def block(i, h, stride):
         name = _conv_name(i)
         return conv_block(params[name], stats[name], h, stride=stride,
-                          compute_dtype=compute_dtype)
+                          compute_dtype=compute_dtype, band=band)
 
     skip8 = skip16 = None
     if fused_early:

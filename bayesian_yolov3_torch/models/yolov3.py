@@ -159,6 +159,7 @@ def _heads(
     compute_dtype=torch.float32,
     return_features: bool = False,
     capture: Optional[Dict] = None,
+    band=None,
 ):
     """Everything after the backbone: 3 det heads + scale transitions.
 
@@ -172,12 +173,14 @@ def _heads(
     instead of detection outputs.  ``capture`` (dict or None): every conv
     block's post-LeakyReLU output is stored under its block name — what
     the int8 calibration reduces (``ops.quant.calibrate_mc_amax``).
+    ``band``: the backbone outputs are an sp rank's bands of rows
+    (``darknet.darknet53``); every head conv block exchanges its halo rows.
     """
 
     def block(name, x, keys):
         y = conv_block(params[name], stats[name], x,
                        drop_rate=DROP_PROB if keys is not None else None,
-                       drop_keys=keys, compute_dtype=compute_dtype)
+                       drop_keys=keys, compute_dtype=compute_dtype, band=band)
         if capture is not None:
             capture[name] = y
         return y
@@ -219,11 +222,12 @@ def forward(
                   compute_dtype=compute_dtype)
 
 
-def _batch_keys(spec: VariantSpec, rng, standard_test_dropout: bool):
-    """The (1, 15) key table of a batched pass with dropout active (the
-    bayesian variant without ``standard_test_dropout``), else None."""
+def _batch_keys(spec: VariantSpec, rng, standard_test_dropout: bool, n: int = 1):
+    """The (n, 15) key table of a batched pass with dropout active (the
+    bayesian variant without ``standard_test_dropout``), else None: one row
+    for a pass, one row per rank for the ranks of a dp group."""
     if spec.mc_dropout and not standard_test_dropout:
-        return _key_table(rng, None, 1)
+        return _key_table(rng, None, n)
     return None
 
 
@@ -238,6 +242,7 @@ def forward_cf(
     compute_dtype=torch.float32,
     fused_early=None,
     packed_hw=None,
+    band=None,
 ):
     """Batched inference forward emitting CHANNELS-FIRST raw heads.
 
@@ -247,15 +252,17 @@ def forward_cf(
     (ch, NB, h*w) f32 per scale — the input layout of the box decode kernel
     (ops.cuda_decode), with no relayout in between.
 
-    Returns [(raw_cf (ch, NB, h*w), (h, w)), ...].
+    Returns [(raw_cf (ch, NB, h*w), (h, w)), ...].  ``band``
+    (``parallel.spatial.Band``): ``imgs`` is an sp rank's band of image
+    rows; the raws are the band's, h its rows.
     """
     out32, skip16, skip8, _ = darknet.darknet53(
         params["backbone"], stats["backbone"], imgs,
-        compute_dtype=compute_dtype, fused_early=fused_early, packed_hw=packed_hw,
+        compute_dtype=compute_dtype, fused_early=fused_early, packed_hw=packed_hw, band=band,
     )
     feats = _heads(params, stats, out32, skip16, skip8,
                    site_keys=_batch_keys(spec, rng, standard_test_dropout),
-                   compute_dtype=compute_dtype, return_features=True)
+                   compute_dtype=compute_dtype, return_features=True, band=band)
     out = []
     for head, f in enumerate(feats, start=1):
         raw_cf = detection_conv_cf(params[f"det{head}"], f, compute_dtype=compute_dtype)
@@ -308,6 +315,7 @@ def mc_forward_cf(
     fused_early=None,
     packed_hw=None,
     fixed_masks=None,
+    band=None,
 ):
     """T-sample MC forward emitting CHANNELS-FIRST raw heads.
 
@@ -318,17 +326,18 @@ def mc_forward_cf(
     between.  An image batch NB >= 1 folds onto the anchor axis; dropout
     masks are drawn per (sample, image, position).
 
-    Returns [(raw_cf (ch, T, NB*h*w), (h, w)), ...].
+    Returns [(raw_cf (ch, T, NB*h*w), (h, w)), ...].  ``band``: as in
+    ``forward_cf``.
     """
     if spec.variant != Variant.BAYESIAN:
         raise ValueError("mc_forward_cf needs the bayesian variant")
     out32, skip16, skip8, _ = darknet.darknet53(
         params["backbone"], stats["backbone"], img,
-        compute_dtype=compute_dtype, fused_early=fused_early, packed_hw=packed_hw,
+        compute_dtype=compute_dtype, fused_early=fused_early, packed_hw=packed_hw, band=band,
     )
     feats = _heads(params, stats, out32, skip16, skip8,
                    site_keys=_key_table(rng, fixed_masks, T),
-                   compute_dtype=compute_dtype, return_features=True)
+                   compute_dtype=compute_dtype, return_features=True, band=band)
     nb = img.shape[0]
     out = []
     for head, f in enumerate(feats, start=1):

@@ -27,6 +27,7 @@ This slice is inference only: batch norm always uses the moving statistics.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Sequence, Union
 
@@ -109,7 +110,7 @@ def hash_keep(idx: torch.Tensor, key: int, thresh: int) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float,
-            keys: Union[int, Sequence[int]]) -> torch.Tensor:
+            keys: Union[int, Sequence[int]], origin=None) -> torch.Tensor:
     """Inverted hash dropout (``impl="hash"`` of the JAX package), in place.
 
     ``x`` is (S*NB, h, w, c): S MC samples of an NB-image batch stacked on
@@ -118,6 +119,11 @@ def dropout(x: torch.Tensor, rate: float,
     PER-SAMPLE tensor (NB, h, w, c) — the sample axis does not enter it —
     whatever memory layout ``x`` has.  Masks are built one sample at a
     time so the int64 temporaries stay at one sample's size.
+
+    ``origin=(r0, H)``: ``x`` holds rows [r0, r0+h) of a map H rows high
+    (an sp rank's band, ``parallel.spatial``); element (n, r, j, k) then
+    takes the index of its place in the whole map, ((n*H + r0 + r)*w +
+    j)*c + k, so a band draws exactly its rows of the whole map's mask.
     """
     keys = [keys] if isinstance(keys, int) else [int(k) for k in keys]
     s = len(keys)
@@ -130,13 +136,27 @@ def dropout(x: torch.Tensor, rate: float,
     keep = torch.tensor(keep, dtype=x.dtype).item()
     nb = x.shape[0] // s
     per_sample = (nb,) + tuple(x.shape[1:])
-    idx = torch.arange(math.prod(per_sample), dtype=torch.int64,
-                       device=x.device).reshape(per_sample)
+    if origin is None:
+        idx = torch.arange(math.prod(per_sample), dtype=torch.int64,
+                           device=x.device).reshape(per_sample)
+    else:
+        idx = _band_index(per_sample, *origin, x.device)
     for i, key in enumerate(keys):
         xs = x[i * nb:(i + 1) * nb]
         mask = hash_keep(idx, key, thresh)
         xs.div_(keep).masked_fill_(~mask, 0.0)
     return x
+
+
+def _band_index(shape, r0: int, height: int, device) -> torch.Tensor:
+    """int64 flat NHWC indices of rows [r0, r0+h) of an (n, height, w, c)
+    map, shaped (n, h, w, c)."""
+    n, h, w, c = shape
+    if not 0 <= r0 <= height - h:
+        raise ValueError(f"rows [{r0}, {r0 + h}) outside a map {height} rows high")
+    ar = functools.partial(torch.arange, dtype=torch.int64, device=device)
+    rows = ar(n)[:, None] * height + r0 + ar(h)  # (n, h): the rows' global row index
+    return (rows[..., None] * w + ar(w))[..., None] * c + ar(c)
 
 
 def _bn_affine(gamma, beta, mean, var):
@@ -148,21 +168,28 @@ def _bn_affine(gamma, beta, mean, var):
 
 def conv_block(params: Dict, stats: Dict, x: torch.Tensor, *, stride: int = 1,
                training: bool = False, drop_rate: Optional[float] = None,
-               drop_keys=None, compute_dtype=torch.float32) -> torch.Tensor:
+               drop_keys=None, compute_dtype=torch.float32, band=None) -> torch.Tensor:
     """conv -> [dropout] -> batch_norm -> LeakyReLU(0.1), NHWC in and out.
 
     Dropout runs BEFORE batch norm (reference ordering).  ``drop_keys``:
     one uint32 hash key per MC sample stacked on the leading axis (see
     ``dropout``).  Batch norm uses the moving statistics; batch-statistics
     mode belongs to the training slice.
+
+    ``band`` (None: ``x`` is the whole map): ``x`` is an sp rank's band of
+    rows (``parallel.spatial.Band``); the conv takes its halo rows from the
+    neighbouring ranks (``band.conv``) and the dropout mask is the band's
+    rows of the whole map's mask (``band.origin``).
     """
     if training:
         raise NotImplementedError("batch-statistics BN belongs to the training slice")
-    y = conv2d(x.to(compute_dtype), params["w"].to(compute_dtype), stride=stride)
+    conv = conv2d if band is None else band.conv
+    y = conv(x.to(compute_dtype), params["w"].to(compute_dtype), stride=stride)
     if drop_rate is not None and drop_rate > 0.0:
         if drop_keys is None:
             raise ValueError("dropout requires a key")
-        y = dropout(y, drop_rate, drop_keys)
+        y = dropout(y, drop_rate, drop_keys,
+                    origin=None if band is None else band.origin(y.shape[1]))
     y = y.float()  # the conv's own fresh output: updated in place below
     scale, bias = _bn_affine(params["gamma"], params["beta"], stats["mean"], stats["var"])
     y.mul_(scale).add_(bias)

@@ -2,7 +2,7 @@
 
 PyTorch counterpart of the JAX package's ``parallel/epistemic.py``.  The T
 MC-dropout samples of one image are split over the N ranks of an ``mc``
-group (``parallel.mesh.make_group``); every rank runs the backbone on the
+group (``parallel.mesh.make_groups``); every rank runs the backbone on the
 whole image and the dropout-bearing heads on its T/N samples.  Two ways:
 
 * ``make_mc_sharded_fused_pipeline`` — the fast one: each rank reduces its
@@ -61,6 +61,26 @@ def _local_raws(model, group: Group, T: int, fixed_masks, params, stats, img, rn
     return mc_forward_cf_q(qheads, params, stats, img, **kw)
 
 
+def sharded_moments_rows(outs, group: Group, T: int, priors_by_stride,
+                         cls_cnt: int) -> torch.Tensor:
+    """The back half of the fused mc pipeline: this rank's T/N samples of a
+    frame, [(raw_cf (ch, T/N, h*w), (h, w)), ...] -> their moment sums, the
+    three scales into one packed float32 buffer (one launch a scale) -> one
+    all-reduce over ``group`` -> one finalize launch with the global T.
+    Returns the decoded rows of every anchor, (N_total, 21+C), the same on
+    every rank of the group."""
+    n_priors = priors_by_stride[32].shape[0]
+    hws = [hw for _, hw in outs]
+    plan = ops_decode.scale_plan(hws, n_priors)
+    packed = torch.empty(plan.rows * (21 + cls_cnt), dtype=torch.float32,
+                         device=outs[0][0].device)
+    for (raw_cf, _), sums in zip(outs, ops_decode.packed_views(packed, plan, 21 + cls_cnt)):
+        epistemic_moments_cf(raw_cf, cls_cnt=cls_cnt, n_priors=n_priors, out=sums)
+    group.all_reduce(packed)
+    return epistemic_finalize_all_scales(packed, priors_by_stride, T=T, hws=hws,
+                                         cls_cnt=cls_cnt)[0]
+
+
 def make_mc_sharded_forward(model, group: Group, T: int):
     """Build ``fn(params, stats, img (1, H, W, 3) float, rng) -> [(raw_cf
     (ch, T, h*w), (h, w)), ...]``: the raw heads of all T samples on every
@@ -99,8 +119,6 @@ def make_mc_sharded_fused_pipeline(model, group: Group, T: int, *, priors_by_str
     seeded alike on every rank or a (T, 15) table.  NMS is exact (over
     every anchor), so there is no certificate to check and no retry."""
     _check_split(T, group)
-    C = model.spec.cls_cnt
-    n_priors = priors_by_stride[32].shape[0]
 
     @torch.no_grad()
     def decode(params, stats, img, rng=None, qheads=None) -> torch.Tensor:
@@ -108,15 +126,7 @@ def make_mc_sharded_fused_pipeline(model, group: Group, T: int, *, priors_by_str
         every rank: local sums of the three scales into one packed buffer ->
         one all-reduce -> one finalize launch."""
         outs = _local_raws(model, group, T, fixed_masks, params, stats, img, rng, qheads)
-        hws = [hw for _, hw in outs]
-        plan = ops_decode.scale_plan(hws, n_priors)
-        packed = torch.empty(plan.rows * (21 + C), dtype=torch.float32,
-                             device=outs[0][0].device)
-        for (raw_cf, _), sums in zip(outs, ops_decode.packed_views(packed, plan, 21 + C)):
-            epistemic_moments_cf(raw_cf, cls_cnt=C, n_priors=n_priors, out=sums)
-        group.all_reduce(packed)
-        return epistemic_finalize_all_scales(packed, priors_by_stride, T=T, hws=hws,
-                                             cls_cnt=C)[0]
+        return sharded_moments_rows(outs, group, T, priors_by_stride, model.spec.cls_cnt)
 
     def call(params, stats, img, rng=None, qheads=None):
         rows, valid, _ = nms.nms_select(decode(params, stats, img, rng, qheads), obj_idx,

@@ -6,10 +6,18 @@ is driven by a process of its own (a rank), and the ranks meet in
 collectives of a process group:
 
 * axis ``mc`` — the MC-dropout samples of epistemic inference, split over
-  the ranks (``parallel/epistemic.py``).
+  the ranks (``parallel/epistemic.py``);
+* axis ``dp`` — the image batch of batched inference, split over the ranks
+  (``parallel/batch.py``);
+* axis ``sp`` — the image rows, split into one band per rank, with a
+  one-row halo exchange around every 3x3 conv (``parallel/spatial.py``).
 
-The other axes of the JAX package (``dp``, ``sp``) belong to later slices
-of the port.
+One axis spans the whole world (the default process group).  Two axes,
+``{'sp': a, 'mc': b}``, lay the world out as the JAX package's
+``make_mesh`` lays out its devices: the rank list reshaped to the axis
+sizes in dict order, the first axis major, so rank = sp_idx * b + mc_idx;
+each axis then runs over subgroups (``dist.new_group``) of the ranks that
+share the other axis's index.
 
 Bring-up: ``torchrun --nproc_per_node N`` sets ``RANK`` / ``WORLD_SIZE`` /
 ``LOCAL_RANK`` and ``maybe_initialize_from_config`` joins the group from
@@ -92,47 +100,82 @@ def local_rank() -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Group:
-    """One axis of ranks over the default process group: its size and
-    this process's rank on it."""
+    """One axis of ranks: its size, this process's rank on it, and the
+    process group its collectives run over (None: the default group, the
+    whole world)."""
 
     size: int
     rank: int
+    pg: Optional[dist.ProcessGroup] = None
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the group's ranks, in place."""
-        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.pg)
         return t
 
     def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Every rank's ``t`` concatenated along ``dim`` in rank order."""
         parts = [torch.empty_like(t) for _ in range(self.size)]
-        dist.all_gather(parts, t.contiguous())
+        dist.all_gather(parts, t.contiguous(), group=self.pg)
         return torch.cat(parts, dim=dim)
+
+    def exchange_edges(self, first: Optional[torch.Tensor], last: torch.Tensor):
+        """The halo exchange of the ``sp`` axis: every rank offers the first
+        and the last row of its band (``first`` None: the last alone) and
+        gets ``(prev_last, next_first)`` — the previous rank's ``last`` and
+        the next rank's ``first`` — with None past either end of the axis
+        (and for ``next_first`` when ``first`` is None).  One all-gather of
+        the edges within the group: NCCL and gloo both take it for CUDA
+        tensors, where gloo has no point-to-point send for them."""
+        edges = last[None] if first is None else torch.stack([first, last])
+        got = self.all_gather(edges[None], dim=0)  # (size, 1 or 2, ...)
+        prev_last = got[self.rank - 1, -1] if self.rank > 0 else None
+        next_first = (got[self.rank + 1, 0] if first is not None and self.rank < self.size - 1
+                      else None)
+        return prev_last, next_first
 
     def all_true(self, flag: bool, device) -> bool:
         """True iff ``flag`` holds on every rank of the group."""
         t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=device)
-        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.pg)
         return int(t.item()) == self.size
 
 
-def make_group(shape: Dict[str, int]) -> Group:
-    """The group of one named axis, e.g. ``{'mc': N}``, over the ranks of
-    the initialised default process group.  Raises unless N equals its
-    world size (the JAX package's ``make_mesh`` asserts the same)."""
-    if len(shape) != 1:
-        raise ValueError(f"one axis per group; got {shape}")
-    (n,) = shape.values()
+def world_group() -> Group:
+    """Every rank of the initialised default process group, as one group."""
+    return Group(size=dist.get_world_size(), rank=dist.get_rank())
+
+
+def make_groups(shape: Dict[str, int]) -> Dict[str, Group]:
+    """This rank's group on each axis of ``shape`` (``{'mc': N}``, ``{'sp':
+    a, 'mc': b}``, ...), whose sizes multiply to the world size of the
+    initialised default process group (the JAX package's ``make_mesh``
+    asserts the same), else ``RuntimeError``.  One axis spans the whole
+    world.  Several lay the ranks out row-major over the axes in dict
+    order; every rank builds every subgroup, in one fixed order (axis by
+    axis, lines in rank order), as ``dist.new_group`` requires."""
+    world = int(np.prod(list(shape.values())))
     if not dist.is_initialized():
         raise RuntimeError(
-            f"mesh_shape {shape} needs an initialised process group of world size {n}: "
+            f"mesh_shape {shape} needs an initialised process group of world size {world}: "
             "none is (run under torchrun, set coordinator_address, or call "
             "parallel.initialize_distributed first)")
-    if dist.get_world_size() != n:
+    if dist.get_world_size() != world:
         raise RuntimeError(
-            f"mesh_shape {shape} needs an initialised process group of world size {n}; "
+            f"mesh_shape {shape} needs an initialised process group of world size {world}; "
             f"this one has {dist.get_world_size()} ranks")
-    return Group(size=n, rank=dist.get_rank())
+    if len(shape) == 1:
+        return {name: world_group() for name in shape}
+    me = dist.get_rank()
+    layout = np.arange(world).reshape(list(shape.values()))
+    groups = {}
+    for axis, name in enumerate(shape):
+        for line in np.moveaxis(layout, axis, -1).reshape(-1, shape[name]):
+            pg = dist.new_group([int(r) for r in line])
+            if me in line:
+                groups[name] = Group(size=len(line), rank=int(np.flatnonzero(line == me)[0]),
+                                     pg=pg)
+    return groups
 
 
 def local_rows(table: np.ndarray, rank: int, n: int) -> np.ndarray:

@@ -74,10 +74,29 @@ main_path_int8
             11, 13 frames); ms per image of int8 beside bf16 read in turns,
             the head sections, epilogue launches, peak memory
 
+main_path_dp
+            data-parallel batched aleatoric inference, mesh_shape={'dp': 2}:
+            two spawned ranks on the one card over gloo, batch 22 (11 a
+            rank), run() over the batched frames in bf16 and int8; launches
+            per rank, each rank's rows against the single-device runner's
+            (bit-equal, else paired by anchor), ms per image per rank, the
+            gather of the rows
+main_path_sp
+            spatial sharding, the image rows split into bands with a halo
+            exchange around every 3x3 conv: epistemic T=30 bf16 over
+            {'sp': 2, 'mc': 2} on four spawned ranks and over {'sp': 2};
+            batched aleatoric batch 1 over {'sp': 2} in float32 and bf16;
+            run() over the main path's 3 frames; launches, halo exchanges
+            and bytes, raw gathers and all-reduces per frame and rank; frame
+            0's decoded rows equal on every rank and against the single
+            device (float32 rtol 1e-4 / atol 1e-5, bf16 the jitter bounds);
+            ms per frame; peak memory of one frame per rank beside the
+            single device's
+
 Then the card line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
-then exits non-zero and prints no result line.  The two-rank phase starts
-two processes (spawned, joined under a timeout) and leaves none behind.
+then exits non-zero and prints no result line.  The multi-rank phases
+start processes (spawned, joined under a timeout) and leave none behind.
 """
 
 import contextlib
@@ -112,7 +131,7 @@ from bayesian_yolov3_torch.ops import (
     _build, common, cuda_conv, cuda_decode, cuda_epistemic, cuda_moments, cuda_nms, cuda_quant,
     decode, nms, quant)
 from bayesian_yolov3_torch.parallel import (
-    initialize_distributed, local_rows, make_group, make_mc_sharded_fused_pipeline)
+    initialize_distributed, local_rows, make_groups, make_mc_sharded_fused_pipeline)
 from bayesian_yolov3_torch.parallel.mesh import Group
 from bayesian_yolov3_torch.train.checkpoints import CheckpointStore
 from bayesian_yolov3_torch.train.loop import partition_params
@@ -1303,19 +1322,41 @@ MC_KERNELS = ("epistemic_moments", "epistemic_finalize")  # the mc path's own
 
 
 @contextlib.contextmanager
-def count_all_reduces():
-    """The sizes (elements) of the ``Group.all_reduce`` calls made inside."""
-    calls, orig = [], Group.all_reduce
+def count_collectives():
+    """The ``Group`` collectives called inside, by method: (bytes, host
+    seconds) of each call — the tensor all-reduced, a rank's part
+    all-gathered, the edge rows a rank offers to the halo exchange — timed
+    from a drained device to a drained device.  A call made inside another
+    (the halo exchange's all-gather) is part of that one."""
+    calls = {"all_reduce": [], "all_gather": [], "exchange_edges": []}
+    origs = {name: getattr(Group, name) for name in calls}
+    inside = []
 
-    def counted(self, t):
-        calls.append(t.numel())
-        return orig(self, t)
+    def counting(name):
+        def counted(self, *tensors, **kw):
+            if inside:
+                return origs[name](self, *tensors, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inside.append(name)
+            try:
+                out = origs[name](self, *tensors, **kw)
+                torch.cuda.synchronize()
+            finally:
+                inside.pop()
+            calls[name].append((sum(t.numel() * t.element_size() for t in tensors
+                                    if isinstance(t, torch.Tensor)),
+                                time.perf_counter() - t0))
+            return out
+        return counted
 
-    Group.all_reduce = counted
+    for name in calls:
+        setattr(Group, name, counting(name))
     try:
         yield calls
     finally:
-        Group.all_reduce = orig
+        for name, fn in origs.items():
+            setattr(Group, name, fn)
 
 
 # bf16 rows, card against CPU or packed against image-fed input: the
@@ -1621,7 +1662,7 @@ def timing(runner, params, stats, frames, dev, card):
 SPLIT_TOL = (((0, 12), 1e-4, 1e-5), ((12, 13), 1e-3, 1e-6), ((13, 21 + C), 1e-4, 2e-4))
 MC_MASKS = 7  # fixed_mc_masks seed of the mc phases
 MC_RANKS = 2
-MC_RANKS_TIMEOUT_S = 300  # a rank that hangs fails the phase at this join timeout
+RANKS_TIMEOUT_S = 300  # a rank that hangs fails its phase at this join timeout
 
 
 def split_agree(name, got, want):
@@ -1714,7 +1755,7 @@ def main_path_mc(tmp, dev, card, runners, params, stats, frames):
                            rank=0, device=dev)
     out, launches_bf16 = {}, None
     try:
-        group = make_group({"mc": 1})
+        group = make_groups({"mc": 1})["mc"]
         for runner in runners:
             dtype = runner.config.compute_dtype
             pipe = mc_pipeline(runner, group)
@@ -1723,10 +1764,10 @@ def main_path_mc(tmp, dev, card, runners, params, stats, frames):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             reset_counters()
-            with count_all_reduces() as all_reduces:
+            with count_collectives() as coll:
                 results = [pipe(params, stats, x) for x in imgs]
             torch.cuda.synchronize()
-            launches = {**read_counters(), "all_reduce": len(all_reduces)}
+            launches = {**read_counters(), "all_reduce": len(coll["all_reduce"])}
             peak = torch.cuda.max_memory_allocated() / 1e9
             n = len(frames)
             bf16 = dtype == "bfloat16"
@@ -1788,59 +1829,67 @@ def _mc_rank(rank, store, cfg, res_dir, frame0_path, dev):
     then the decoded rows of frame 0 through the fused pipeline and through
     the all-gather fallback, one fallback predict(), and timings."""
     dev = torch.device(dev)
+    res = {}
+    initialize_distributed("gloo", f"file://{store}", world_size=MC_RANKS, rank=rank,
+                           device=dev)
+    runner = InferenceRunner(cfg, seed=0, device=dev)
+    writes = []
+    write = runner._write_batch
+    runner._write_batch = lambda *a: (writes.append(1), write(*a))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.time()
+    with count_collectives() as coll:
+        res["out_dir"] = runner.run()
+    torch.cuda.synchronize()
+    res.update(run_wall_s=time.time() - t0, loop=runner.last_run,
+               launches={**read_counters(), "all_reduce": len(coll["all_reduce"])},
+               peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9, writes=len(writes),
+               retried=runner.retried)
+
+    params, stats, _ = runner.load_state()
+    img = torch.from_numpy(np.load(frame0_path)[None]).to(dev)
+    keys = runner.draw_keys()  # the fixed table
+    rows_fused = runner._decoded_rows(params, stats, img, keys)
+    # the all-gather fallback, same frame and keys: the one-shot decode of
+    # the gathered samples against the fused split form of the same samples
+    fb = InferenceRunner(dataclasses.replace(cfg, use_pallas=False, fixed_mc_masks=None),
+                         seed=0, device=dev)
+    reset_counters()
+    rows_fb = fb._decoded_rows(params, stats, img, keys)
+    rows, valid = fb.predict(params, stats, np.load(frame0_path)[None])  # drawn keys
+    torch.cuda.synchronize()
+    res["fallback"] = {"launches": read_counters(), "detections": int(valid.sum()),
+                       "retried": fb.retried, "finite": bool(np.isfinite(rows).all()),
+                       "vs_fused": split_agree(f"rank {rank}: fallback against fused",
+                                               rows_fb, rows_fused)}
+    torch.save(rows_fused.cpu(), os.path.join(res_dir, f"rows{rank}.pt"))
+
+    # ms per frame of the device program (both ranks in step), the gloo
+    # all-reduce of one frame's sums on the host clock
+    def one():
+        return runner._launch(params, stats, img, keys)()
+
+    one()
+    torch.cuda.synchronize()
+    res["ms_per_frame"] = event_ms(one, 3)
+    with torch.no_grad():
+        outs = yolov3.mc_forward_cf(params, stats, img.float() / 255.0, spec=runner.spec,
+                                    T=cfg.T // MC_RANKS,
+                                    rng=local_rows(keys, rank, MC_RANKS),
+                                    compute_dtype=runner.model._dtype)
+    sums, _ = packed_moments(outs)
+    res["all_reduce_wall_ms"] = wall_ms(lambda: runner.group.all_reduce(sums), 3)
+    res["all_reduce_bytes"] = sums.numel() * 4
+    return res
+
+
+def _rank_entry(target, rank, res_dir, args):
+    """A spawned rank: ``target(rank, *args)``'s result (or its traceback)
+    into ``res_dir/rank<r>.json``; the process group destroyed at the end."""
     res = {"rank": rank}
     try:
-        initialize_distributed("gloo", f"file://{store}", world_size=MC_RANKS, rank=rank,
-                               device=dev)
-        runner = InferenceRunner(cfg, seed=0, device=dev)
-        writes = []
-        write = runner._write_batch
-        runner._write_batch = lambda *a: (writes.append(1), write(*a))
-        torch.cuda.reset_peak_memory_stats()
-        reset_counters()
-        t0 = time.time()
-        with count_all_reduces() as all_reduces:
-            res["out_dir"] = runner.run()
-        torch.cuda.synchronize()
-        res.update(run_wall_s=time.time() - t0, loop=runner.last_run,
-                   launches={**read_counters(), "all_reduce": len(all_reduces)},
-                   peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9, writes=len(writes),
-                   retried=runner.retried)
-
-        params, stats, _ = runner.load_state()
-        img = torch.from_numpy(np.load(frame0_path)[None]).to(dev)
-        keys = runner.draw_keys()  # the fixed table
-        rows_fused = runner._decoded_rows(params, stats, img, keys)
-        # the all-gather fallback, same frame and keys: the one-shot decode of
-        # the gathered samples against the fused split form of the same samples
-        fb = InferenceRunner(dataclasses.replace(cfg, use_pallas=False, fixed_mc_masks=None),
-                             seed=0, device=dev)
-        reset_counters()
-        rows_fb = fb._decoded_rows(params, stats, img, keys)
-        rows, valid = fb.predict(params, stats, np.load(frame0_path)[None])  # drawn keys
-        torch.cuda.synchronize()
-        res["fallback"] = {"launches": read_counters(), "detections": int(valid.sum()),
-                           "retried": fb.retried, "finite": bool(np.isfinite(rows).all()),
-                           "vs_fused": split_agree(f"rank {rank}: fallback against fused",
-                                                   rows_fb, rows_fused)}
-        torch.save(rows_fused.cpu(), os.path.join(res_dir, f"rows{rank}.pt"))
-
-        # ms per frame of the device program (both ranks in step), the gloo
-        # all-reduce of one frame's sums on the host clock
-        def one():
-            return runner._launch(params, stats, img, keys)()
-
-        one()
-        torch.cuda.synchronize()
-        res["ms_per_frame"] = event_ms(one, 3)
-        with torch.no_grad():
-            outs = yolov3.mc_forward_cf(params, stats, img.float() / 255.0, spec=runner.spec,
-                                        T=cfg.T // MC_RANKS,
-                                        rng=local_rows(keys, rank, MC_RANKS),
-                                        compute_dtype=runner.model._dtype)
-        sums, _ = packed_moments(outs)
-        res["all_reduce_wall_ms"] = wall_ms(lambda: runner.group.all_reduce(sums), 3)
-        res["all_reduce_bytes"] = sums.numel() * 4
+        res.update(target(rank, *args))
     except BaseException:
         res["error"] = traceback.format_exc()
         raise
@@ -1849,6 +1898,31 @@ def _mc_rank(rank, store, cfg, res_dir, frame0_path, dev):
             json.dump(res, f)
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def spawn_ranks(target, n, res_dir, *args):
+    """``target(rank, *args)`` on ``n`` spawned processes, joined under
+    RANKS_TIMEOUT_S; a rank still running then is killed and fails the
+    phase.  Returns the ranks' results and the phase's wall seconds."""
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_entry, args=(target, r, res_dir, args)) for r in range(n)]
+    t0 = time.time()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(0.0, t0 + RANKS_TIMEOUT_S - time.time()))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    ranks = []
+    for r in range(n):
+        path = os.path.join(res_dir, f"rank{r}.json")
+        ranks.append(json.load(open(path)) if os.path.exists(path) else {"error": "no result"})
+    errors = [r.get("error") for r in ranks if r.get("error")]
+    check(not hung, f"{len(hung)} rank(s) still running after {RANKS_TIMEOUT_S} s: {errors}")
+    check([p.exitcode for p in procs] == [0] * n, f"a rank failed: {errors}")
+    return ranks, time.time() - t0
 
 
 def _host_s(fn):
@@ -1932,27 +2006,8 @@ def main_path_mc_2ranks(tmp, dev, card, runner, params, stats):
     os.makedirs(res_dir)
     frame0 = os.path.join(res_dir, "frame0.npy")
     np.save(frame0, frames[0])
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_mc_rank, args=(r, os.path.join(res_dir, "store"), cfg,
-                                                res_dir, frame0, str(dev)))
-             for r in range(MC_RANKS)]
-    t0 = time.time()
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(max(0.0, t0 + MC_RANKS_TIMEOUT_S - time.time()))
-    hung = [p for p in procs if p.is_alive()]
-    for p in hung:
-        p.kill()
-        p.join()
-    ranks = []
-    for r in range(MC_RANKS):
-        path = os.path.join(res_dir, f"rank{r}.json")
-        ranks.append(json.load(open(path)) if os.path.exists(path) else {"error": "no result"})
-    errors = [r.get("error") for r in ranks if r.get("error")]
-    check(not hung, f"{len(hung)} rank(s) still running after {MC_RANKS_TIMEOUT_S} s: {errors}")
-    check([p.exitcode for p in procs] == [0] * MC_RANKS, f"a rank failed: {errors}")
-    wall = time.time() - t0
+    ranks, wall = spawn_ranks(_mc_rank, MC_RANKS, res_dir, os.path.join(res_dir, "store"), cfg,
+                              res_dir, frame0, str(dev))
 
     r0, r1 = ranks
     check(r0["out_dir"] == r1["out_dir"], "the ranks returned different output directories")
@@ -1992,7 +2047,7 @@ def main_path_mc_2ranks(tmp, dev, card, runner, params, stats):
     initialize_distributed("nccl", "file://" + os.path.join(res_dir, "nccl_store"),
                            world_size=1, rank=0, device=dev)
     try:
-        pipe = mc_pipeline(runner, make_group({"mc": 1}))
+        pipe = mc_pipeline(runner, make_groups({"mc": 1})["mc"])
         paired = []
         for i, f in enumerate(frames):
             x = torch.from_numpy(f[None]).to(dev).float() / 255.0
@@ -2026,10 +2081,11 @@ def make_batched_config(tmp, name, model, pattern, **kw):
     """Batched inference as cli/inference_{standard_yolov3,aleatoric}.py set
     it up: batch 11, ECP priors, full images; bf16 unless ``kw`` says."""
     return Config(
-        model=model, inference_mode=False, batch_size=BATCH, full_img_size=IMG, cls_cnt=C,
+        model=model, inference_mode=False, full_img_size=IMG, cls_cnt=C,
         checkpoint_path=os.path.join(tmp, "ckpt"), run_id=name, cpu_thread_cnt=6,
         data=DataConfig(file_pattern=pattern), nms_max_boxes=MAX_OUT,
-        nms_pre_top_k=PRE_TOP_K, **{"out_path": os.path.join(tmp, "out", name), **kw},
+        nms_pre_top_k=PRE_TOP_K,
+        **{"out_path": os.path.join(tmp, "out", name), "batch_size": BATCH, **kw},
     )
 
 
@@ -2339,15 +2395,15 @@ def _mc_int8(tmp, dev, cfg, q, params, stats, imgs):
     initialize_distributed("nccl", "file://" + os.path.join(tmp, "nccl_store_int8"),
                            world_size=1, rank=0, device=dev)
     try:
-        pipe = mc_pipeline(q, make_group({"mc": 1}))
+        pipe = mc_pipeline(q, make_groups({"mc": 1})["mc"])
         xs = [img.float() / 255.0 for img in imgs]
         n = len(xs)
         torch.cuda.synchronize()
         reset_counters()
-        with count_all_reduces() as all_reduces:
+        with count_collectives() as coll:
             results = [pipe(params, stats, x, qheads=q._qheads) for x in xs]
         torch.cuda.synchronize()
-        launches = {**read_counters(), "all_reduce": len(all_reduces)}
+        launches = {**read_counters(), "all_reduce": len(coll["all_reduce"])}
         want = {"quant_epilogue": 20 * n, "epistemic_moments": 3 * n, "epistemic_finalize": n,
                 "greedy_nms": n, "epistemic_decode": 0, "all_reduce": n}
         check(all(launches[k] == v for k, v in want.items()),
@@ -2423,6 +2479,320 @@ def main_path_batched_int8(tmp, dev, card, b_runner, b_frames):
     return {"frames": N_BATCHED_FRAMES, "batch_size": BATCH, "card": card, **out}
 
 
+# --------------------------------------------------------------------------
+# the dp and sp axes: ranks spawned on the one card, over gloo
+# --------------------------------------------------------------------------
+
+
+DP_RANKS = 2
+DP_BATCH = DP_RANKS * BATCH  # 11 images per rank, the batched CLIs' batch
+SP_MC = {"sp": 2, "mc": 2}
+
+
+def _first_batch(cfg, n, dev=None):
+    """The dataset's first ``n`` frames as run() batches them (the last one
+    repeated to fill the batch), uint8 on ``dev`` (None: a host array)."""
+    images = next(pipeline.TestLoader(cfg, batch_size=n).batches())["image"]
+    pad = np.repeat(images[-1:], n - len(images), axis=0)
+    images = np.concatenate([images, pad])
+    return images if dev is None else torch.from_numpy(images).to(dev)
+
+
+def _counted_run(runner):
+    """run() with the launch counters, the collectives and the peak memory
+    read from just before to just after; the batches each rank wrote."""
+    writes = []
+    write = runner._write_batch
+    runner._write_batch = lambda *a: (writes.append(1), write(*a))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.time()
+    with count_collectives() as coll:
+        out_dir = runner.run()
+    torch.cuda.synchronize()
+    return out_dir, coll, {
+        "run_wall_s": time.time() - t0, "loop": runner.last_run, "launches": read_counters(),
+        "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9, "writes": len(writes),
+        "retried": runner.retried}
+
+
+def _dp_rank(rank, store, cfgs, res_dir, dev):
+    """One rank of ``main_path_dp``: run() of each configuration over the
+    batched frames (one batch of 22, 11 per rank), then the rank's share of
+    that batch (exact NMS, saved for the parent), the whole batch's rows as
+    ``_launch`` gathers them (rank 0 saves them), ms per image of the rank's
+    device program and the gather of its rows."""
+    dev = torch.device(dev)
+    initialize_distributed("gloo", f"file://{store}", world_size=DP_RANKS, rank=rank, device=dev)
+    out = {}
+    for name, cfg in cfgs.items():
+        runner = InferenceRunner(cfg, seed=0, device=dev)
+        out_dir, coll, res = _counted_run(runner)
+        res.update(out_dir=out_dir, all_gathers=len(coll["all_gather"]))
+        params, stats, _ = runner.load_state()
+        batch = _first_batch(cfg, DP_BATCH)
+        x = runner._to_device(batch).float() / 255.0
+
+        def local():
+            return runner._dp.local(params, stats, x, None, runner._qheads)
+
+        rows, valid = local()
+        torch.save({"rows": rows.cpu(), "valid": valid.cpu()},
+                    os.path.join(res_dir, f"{name}_rows{rank}.pt"))
+
+        def launch():  # the host batch's share copied, converted, computed and gathered
+            return runner._launch(params, stats, runner._to_device(batch), None)()
+
+        whole, whole_valid, _ = launch()
+        if rank == 0:
+            torch.save({"rows": whole.cpu(), "valid": whole_valid.cpu()},
+                        os.path.join(res_dir, f"{name}_gathered.pt"))
+        del whole, whole_valid
+        res["ms_per_img"] = event_ms(local, 3) / BATCH
+        res["launch_wall_ms_per_img"] = wall_ms(launch, 3) / BATCH
+        res["peak_mem_GB_one_batch"] = _peak_gb(launch)
+        res["gather_wall_ms"] = wall_ms(lambda: (runner.group.all_gather(rows),
+                                                 runner.group.all_gather(valid)), 3)
+        res["gather_bytes_per_rank"] = rows.numel() * 4 + valid.numel()
+        out[name] = res
+    return out
+
+
+def _rows_paired(name, got, want, spec):
+    """Rows of a batch (a dp rank's images, say) against the single-device runner's:
+    bit-equal, or else the detections of each image paired by anchor
+    (``_dets_paired``) on at least 99 %."""
+    if torch.equal(got["rows"], want[0].cpu()) and torch.equal(got["valid"], want[1].cpu()):
+        return {"bit_equal": True}
+    paired = []
+    for b in range(got["rows"].shape[0]):
+        dets = [[bbox_to_ecp_format(rows[b, k].numpy(), IMG, spec, epistemic=False)
+                 for k in np.flatnonzero(valid[b].numpy())]
+                for rows, valid in ((got["rows"], got["valid"]),
+                                    (want[0].cpu(), want[1].cpu()))]
+        paired.append(_dets_paired(f"{name} image {b}", *json.loads(json.dumps(dets))))
+    check(min(paired) >= 0.99, f"{name}: detections paired with the single device's: {paired}")
+    return {"bit_equal": False, "paired_share": paired}
+
+
+def main_path_dp(tmp, dev, card, b_runner):
+    """Data-parallel batched aleatoric inference, ``mesh_shape={'dp': 2}``,
+    two spawned ranks on the one card over gloo, batch 22 (11 a rank) at
+    1024x1920, through run() over the batched path's 13 frames (one batch
+    padded to 22), in bf16 and int8 (each rank calibrating on the first 2
+    frames): launches per rank, rank 0 alone writing; each rank's rows of
+    its 11 images against the single-device runner's (batch 11, exact NMS),
+    and the rows gathered on rank 0 equal to each rank's in image order; ms
+    per image per rank (the rank's program alone, and from the host batch
+    through the gather), the gather, peak memory of one batch per rank."""
+    pattern = os.path.join(tmp, "data_batched", "smoke-*-of-*.tfrecord")
+    cfgs = {name: make_batched_config(tmp, "ale", "aleatoric", pattern, batch_size=DP_BATCH,
+                                      mesh_shape={"dp": DP_RANKS},
+                                      out_path=os.path.join(tmp, "out", f"ale_dp_{name}"), **kw)
+            for name, kw in (("bfloat16", {}),
+                             ("int8", dict(quantize="int8", quant_calib_images=INT8_CALIB)))}
+    res_dir = os.path.join(tmp, "dp_ranks")
+    os.makedirs(res_dir)
+    ranks, wall = spawn_ranks(_dp_rank, DP_RANKS, res_dir, os.path.join(res_dir, "store"), cfgs,
+                              res_dir, str(dev))
+    out = {"ranks": DP_RANKS, "backend": "gloo", "batch": DP_BATCH,
+           "frames": N_BATCHED_FRAMES, "phase_wall_s": wall, "card": card}
+    x_u8 = _first_batch(cfgs["bfloat16"], DP_BATCH, dev)
+    params, stats, _ = b_runner.load_state()
+    single = {"bfloat16": b_runner}
+    single["int8"] = InferenceRunner(make_batched_config(tmp, "ale", "aleatoric", pattern,
+                                                         quantize="int8"), seed=0)
+    single["int8"].calibrate_int8(params, stats, x_u8[:INT8_CALIB].cpu().numpy())
+    for name in cfgs:
+        per_rank = [r[name] for r in ranks]
+        check(len({r["out_dir"] for r in per_rank}) == 1, f"dp {name}: output directories differ")
+        check([r["writes"] for r in per_rank] == [1, 0], f"dp {name}: writes {per_rank}")
+        files = glob.glob(os.path.join(per_rank[0]["out_dir"], "*.json"))
+        check(len(files) == N_BATCHED_FRAMES, f"dp {name}: {len(files)} JSON files")
+        calib = INT8_CALIB if name == "int8" else 0
+        want = {"box_decode": 1, "epistemic_decode": 0, "epistemic_moments": 0,
+                "epistemic_finalize": 0, "quant_epilogue": 20 if calib else 0,
+                "fused_stem": 1 + calib, "fused_res_block": 11 * (1 + calib),
+                "fused_downsample": 2 * (1 + calib)}
+        for r in per_rank:
+            got = {k: r["launches"][k] for k in want}
+            check(got == want and r["launches"]["greedy_nms"] >= 1,
+                  f"dp {name}: launches {r['launches']}, want {want}")
+            check(r["all_gathers"] == 2, f"dp {name}: {r['all_gathers']} all-gathers a batch")
+        ref = single[name]
+        agree = []
+        gathered = torch.load(os.path.join(res_dir, f"{name}_gathered.pt"))
+        check(gathered["rows"].shape[0] == DP_BATCH,
+              f"dp {name}: gathered {tuple(gathered['rows'].shape)}")
+        for rank in range(DP_RANKS):
+            share = x_u8[rank * BATCH:(rank + 1) * BATCH]
+            want_rows = ref._select(ref._decoded_rows(params, stats, share, None), 0)[:2]
+            got = torch.load(os.path.join(res_dir, f"{name}_rows{rank}.pt"))
+            # the gathered batch holds each rank's rows in image order
+            check(all(torch.equal(gathered[k][rank * BATCH:(rank + 1) * BATCH], got[k])
+                      for k in ("rows", "valid")),
+                  f"dp {name}: gathered rows {rank * BATCH}:{(rank + 1) * BATCH} are not "
+                  f"rank {rank}'s")
+            agree.append(_rows_paired(f"dp {name} rank {rank}", got, want_rows, ref.spec))
+        out[name] = {"vs_single_device": agree, "per_rank": per_rank}
+    return out
+
+
+def _sp_run(rank, name, cfg, res_dir, dev):
+    """run() of an sp configuration, then frame 0's decoded rows under the
+    key table of a seed-0 generator (saved for the parent), ms per frame
+    and peak memory of one frame."""
+    runner = InferenceRunner(cfg, seed=0, device=dev)
+    out_dir, coll, res = _counted_run(runner)
+    n = res["loop"]["images"]
+    res["out_dir"] = out_dir
+    for label, method in (("halo", "exchange_edges"), ("raw_gather", "all_gather"),
+                          ("all_reduce", "all_reduce")):
+        calls = coll[method]
+        res.update({f"{label}_per_frame": len(calls) / n,
+                    f"{label}_bytes_per_frame": sum(b for b, _ in calls) / n,
+                    f"{label}_wall_ms_per_frame": 1e3 * sum(t for _, t in calls) / n})
+    params, stats, _ = runner.load_state()
+    img = _first_batch(cfg, 1, dev)
+    keys = runner.draw_keys(torch.Generator().manual_seed(0))
+    torch.save(runner._decoded_rows(params, stats, img, keys).cpu(),
+               os.path.join(res_dir, f"{name}_rows{rank}.pt"))
+    res["ms_per_frame"] = wall_ms(lambda: runner._launch(params, stats, img, keys)(), 3)
+    res["peak_mem_GB_one_frame"] = _peak_gb(lambda: runner._launch(params, stats, img, keys)())
+    return res
+
+
+def _sp_rank(rank, stores, cfgs, res_dir, dev):
+    """One rank of ``main_path_sp``: four ranks as {'sp': 2, 'mc': 2}, then
+    ranks 0 and 1 as {'sp': 2} for the epistemic and batched runs."""
+    dev = torch.device(dev)
+    initialize_distributed("gloo", f"file://{stores[0]}", world_size=4, rank=rank, device=dev)
+    out = {"sp_mc": _sp_run(rank, "sp_mc", cfgs["sp_mc"], res_dir, dev)}
+    dist.destroy_process_group()
+    if rank < 2:
+        initialize_distributed("gloo", f"file://{stores[1]}", world_size=2, rank=rank, device=dev)
+        for name in ("epistemic", "batched_float32", "batched_bfloat16"):
+            out[name] = _sp_run(rank, name, cfgs[name], res_dir, dev)
+    return out
+
+
+def _f32_rows_agree(name, runner, got_flat, want_flat):
+    """float32 decoded rows of one frame against the single device's at the
+    whole pipeline's float32 tolerance of tests/test_torch_mc_sharded.py:
+    rtol 1e-4 / atol 1e-5, the corner columns (pixels) at atol 1e-5 x the
+    image size, as that file holds the corners.  Every anchor's values are
+    held to it.  Then exact NMS over both sets of rows: where it picks the
+    same anchors, the selected rows are held to the same tolerance; only
+    where a near-tie makes it pick other anchors are the detections paired
+    by anchor (``_dets_paired``, at least 99 %)."""
+    atol = torch.full((got_flat.shape[-1],), 1e-5)
+    atol[:4] = 1e-5 * max(IMG[:2])
+
+    def ratio(got, want):
+        return (got - want).abs() / (atol.to(want.device) + 1e-4 * want.abs())
+
+    over = ratio(got_flat, want_flat)
+    worst = over.amax(dim=(0, 1))
+    out = {"corner_atol_px": float(atol[0]),
+           "all_anchors_max_err_over_tolerance_by_column": worst.tolist(),
+           "all_anchors_share_over_tolerance": float((over > 1).float().mean())}
+    check(float(worst.max()) <= 1.0, f"{name}: decoded rows off the float32 tolerance: {out}")
+    cfg, obj = runner.config, runner.spec.obj_idx(False)
+    picks = [cuda_nms.greedy_nms_cuda(
+        flat[:, :, :4].to(runner.device).contiguous(),
+        flat[:, :, obj].to(runner.device).contiguous(), cfg.nms_max_boxes,
+        cfg.nms_iou_thresh)[0].cpu() for flat in (got_flat, want_flat)]
+    (g_rows, g_valid, _), (w_rows, w_valid, _) = (
+        runner._select(flat.to(runner.device), 0) for flat in (got_flat, want_flat))
+    if torch.equal(*picks):
+        err = float(ratio(g_rows.cpu(), w_rows.cpu()).max())
+        check(torch.equal(g_valid, w_valid) and err <= 1.0,
+              f"{name}: the same picks, selected rows {err} x the tolerance")
+        return {**out, "same_picks": True, "selected_max_err_over_tolerance": err}
+    got = {"rows": g_rows.cpu(), "valid": g_valid.cpu()}
+    return {**out, "same_picks": False,
+            **_rows_paired(name, got, (w_rows, w_valid), runner.spec)}
+
+
+def main_path_sp(tmp, dev, card, b_runner, b_runner32):
+    """Spatial sharding at 1024x1920 over the main path's 3 frames, ranks
+    spawned on the one card over gloo: epistemic (bayesian, T=30, bf16)
+    over {'sp': 2, 'mc': 2} on four ranks and over {'sp': 2}; batched
+    aleatoric at batch 1 over {'sp': 2} in float32 and bf16.  Launches,
+    collectives and halo traffic per frame and rank; frame 0's decoded rows
+    on every rank equal, against the single-device runner's (float32: rtol
+    1e-4 / atol 1e-5, corners 1e-5 x the image size, on every anchor and on
+    the exact-NMS picks, ``_f32_rows_agree``; bf16: the bf16 jitter bounds,
+    since the single device runs the fused chain and sp does not); ms per
+    frame, and peak memory of one frame per rank beside the single
+    device's."""
+    pattern = os.path.join(tmp, "data", "smoke-*-of-*.tfrecord")
+    kw = dict(nms_max_boxes=MAX_OUT, nms_pre_top_k=PRE_TOP_K)
+
+    def out_path(name):
+        return os.path.join(tmp, "out", f"sp_{name}")
+
+    cfgs = {"sp_mc": make_config(tmp, "smoke", IMG, T, pattern, mesh_shape=SP_MC,
+                                 out_path=out_path("sp_mc"), **kw),
+            "epistemic": make_config(tmp, "smoke", IMG, T, pattern, mesh_shape={"sp": 2},
+                                     out_path=out_path("epistemic"), **kw)}
+    for dtype in ("float32", "bfloat16"):
+        cfgs[f"batched_{dtype}"] = make_batched_config(
+            tmp, "ale", "aleatoric", pattern, batch_size=1, mesh_shape={"sp": 2},
+            compute_dtype=dtype, out_path=out_path(f"batched_{dtype}"))
+    res_dir = os.path.join(tmp, "sp_ranks")
+    os.makedirs(res_dir)
+    stores = [os.path.join(res_dir, f"store{n}") for n in (4, 2)]
+    ranks, wall = spawn_ranks(_sp_rank, 4, res_dir, stores, cfgs, res_dir, str(dev))
+
+    # the single-device references, on frame 0 under the same keys
+    epi = InferenceRunner(make_config(tmp, "smoke", IMG, T, pattern, **kw), seed=0)
+    singles = {"sp_mc": epi, "epistemic": epi, "batched_float32": b_runner32,
+               "batched_bfloat16": b_runner}
+    out = {"phase_wall_s": wall, "backend": "gloo", "frames": 3, "card": card}
+    frames = 3
+    for name, cfg in cfgs.items():
+        n_ranks = 4 if name == "sp_mc" else 2
+        per_rank = [r[name] for r in ranks[:n_ranks]]
+        check(len({r["out_dir"] for r in per_rank}) == 1, f"sp {name}: output directories differ")
+        check([r["writes"] for r in per_rank] == [frames] + [0] * (n_ranks - 1),
+              f"sp {name}: writes {[r['writes'] for r in per_rank]}")
+        check(len(glob.glob(os.path.join(per_rank[0]["out_dir"], "*.json"))) == frames,
+              f"sp {name}: JSON files")
+        epistemic = name in ("sp_mc", "epistemic")
+        want = {"box_decode": 0 if epistemic else frames,
+                "epistemic_decode": 3 * frames if name == "epistemic" else 0,
+                "epistemic_moments": 3 * frames if name == "sp_mc" else 0,
+                "epistemic_finalize": frames if name == "sp_mc" else 0,
+                "quant_epilogue": 0, "fused_stem": 0, "fused_res_block": 0,
+                "fused_downsample": 0}
+        for r in per_rank:
+            got = {k: r["launches"][k] for k in want}
+            check(got == want and r["launches"]["greedy_nms"] >= frames,
+                  f"sp {name}: launches {r['launches']}, want {want}")
+            check(r["halo_per_frame"] == 38 and r["raw_gather_per_frame"] == 3
+                  and r["all_reduce_per_frame"] == (name == "sp_mc"),
+                  f"sp {name}: collectives per frame {r}")
+        rows = [torch.load(os.path.join(res_dir, f"{name}_rows{r}.pt")) for r in range(n_ranks)]
+        check(all(torch.equal(rows[0], r) for r in rows[1:]), f"sp {name}: ranks' rows differ")
+        ref = singles[name]
+        params, stats, _ = ref.load_state()
+        img = _first_batch(cfg, 1, dev)
+        keys = ref.draw_keys(torch.Generator().manual_seed(0))
+        want_rows = ref._decoded_rows(params, stats, img, keys).cpu()
+        if name == "batched_float32":
+            agree = _f32_rows_agree(f"sp {name}", ref, rows[0], want_rows)
+        else:
+            agree = rows_agree_bf16(f"sp {name}", rows[0], want_rows,
+                                    layout=EPI_COLS if epistemic else ALE_COLS)
+        single_peak = _peak_gb(lambda: ref._launch(params, stats, img, keys)())
+        del params, stats
+        out[name] = {"vs_single_device": agree, "single_device_peak_mem_GB_one_frame": single_peak,
+                     "per_rank": per_rank}
+    return out
+
+
 def _numbers(d):
     """The flat numbers of a phase's result (no nested dicts, lists or flags)."""
     return {k: v for k, v in d.items()
@@ -2434,7 +2804,7 @@ def _peaks(summary):
             if isinstance(run, dict) and "peak_mem_GB" in run}
 
 
-def summarize(main_summary, timings, split, mc, mc2, b_summary, b_timings, gemm, int8):
+def summarize(main_summary, timings, split, mc, mc2, b_summary, b_timings, gemm, int8, dp, sp):
     """One compact line of the numbers each phase measured (ms per frame,
     stages, all-reduce, peak memory of every run, launches per frame),
     printed just before the kernels line so that the end of the output
@@ -2471,6 +2841,25 @@ def summarize(main_summary, timings, split, mc, mc2, b_summary, b_timings, gemm,
             **bat["stages_per_batch"], "peak_mem_GB_one_batch": bat["peak_mem_GB_one_batch"],
             "launches": bat["aleatoric"]["launches"],
             "raws_max_err_over_scale": bat["aleatoric"]["raws_vs_bf16"]["max_err_over_scale"]}}
+    out["dp"], out["sp"] = _ranks_summary(dp), _ranks_summary(sp)
+    return out
+
+
+RANK_NUMBERS = ("ms_per_img", "launch_wall_ms_per_img", "peak_mem_GB_one_batch",
+                "gather_wall_ms", "gather_bytes_per_rank", "peak_mem_GB", "run_wall_s", "ms_per_frame", "peak_mem_GB_one_frame",
+                *(f"{label}_{k}_per_frame" for label in ("halo", "raw_gather", "all_reduce")
+                  for k in ("bytes", "wall_ms")))
+
+
+def _ranks_summary(phase):
+    """A multi-rank phase's numbers by configuration: the agreement with the
+    single device, its peak memory where read, each rank's numbers."""
+    out = {"phase_wall_s": phase["phase_wall_s"]}
+    for name, run in phase.items():
+        if isinstance(run, dict) and "per_rank" in run:
+            out[name] = {k: v for k, v in run.items() if k != "per_rank"}
+            out[name]["per_rank"] = [{k: r[k] for k in RANK_NUMBERS if k in r}
+                                     for r in run["per_rank"]]
     return out
 
 
@@ -2542,6 +2931,10 @@ def main():
         int8_batched = main_path_batched_int8(tmp, dev, card, b_runner, b_frames)
         int8 = {"epistemic": int8_epi, "batched": int8_batched}
         emit("main_path_int8", card=card, **int8)
+        dp = main_path_dp(tmp, dev, card, b_runner)
+        emit("main_path_dp", **dp)
+        sp = main_path_sp(tmp, dev, card, b_runner, b_runner32)
+        emit("main_path_sp", **sp)
 
     # launches: each kernel's count from its own path's run — the epistemic
     # bf16 main path; for box_decode the batched aleatoric bf16 run; for the
@@ -2553,7 +2946,7 @@ def main():
         k["launches"] = path.get(k["name"], launches)[k["name"]]
     emit("summary", card=card, ptxas=ptxas, smoke_wall_s=time.time() - t_start,
          **summarize(summary, timings, split, mc_summary, mc2, b_summary, b_timings, gemm,
-                     int8))
+                     int8, dp, sp))
     emit("done", seconds=time.time() - t_start)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -47,7 +47,7 @@ from bayesian_yolov3_torch.ops import cuda_decode, cuda_epistemic, cuda_moments,
 from bayesian_yolov3_torch.parallel import (
     epistemic as par_epistemic,
     initialize_distributed,
-    make_group,
+    make_groups,
     make_mc_sharded_fused_pipeline,
 )
 from bayesian_yolov3_torch.parallel.mesh import Group
@@ -354,7 +354,7 @@ def _mc_rank(rank, store, out):
     try:
         initialize_distributed("gloo", f"file://{store}", world_size=WORLD, rank=rank,
                                device="cpu")
-        group = make_group({"mc": WORLD})
+        group = make_groups({"mc": WORLD})["mc"]
         per = MC_T // WORLD
 
         def local_raws(model, group, T, fixed_masks, params, stats, img, rng, qheads=None):

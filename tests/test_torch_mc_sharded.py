@@ -65,7 +65,7 @@ from bayesian_yolov3_torch.ops import cuda_epistemic, cuda_moments
 from bayesian_yolov3_torch.parallel import (
     initialize_distributed,
     local_rows,
-    make_group,
+    make_groups,
     make_mc_sharded_fused_pipeline,
 )
 from bayesian_yolov3_torch.train import CheckpointStore, partition_params
@@ -177,7 +177,7 @@ def test_local_rows_and_group_rules():
         local_rows(table, 0, 3)
     assert not dist.is_initialized()
     with pytest.raises(RuntimeError, match="world size 2"):
-        make_group({"mc": 2})
+        make_groups({"mc": 2})["mc"]
 
 
 # --------------------------------------------------------------------------
@@ -238,7 +238,7 @@ def _rank_work(rank, data, out):
     # the fused pipeline itself, fixed masks
     model = YoloV3.from_config(fixed.config)
     pipe = make_mc_sharded_fused_pipeline(
-        model, make_group(mc), T, priors_by_stride=fixed._priors,
+        model, make_groups(mc)["mc"], T, priors_by_stride=fixed._priors,
         obj_idx=model.spec.obj_idx(epistemic=True), nms_max_boxes=20, fixed_masks=SEED)
     res["pipe_rows"], res["pipe_valid"] = (a.numpy() for a in pipe(params, stats, img))
 
@@ -485,8 +485,8 @@ def test_cli_single_process_device(monkeypatch):
     (dict(mesh_shape={"mc": 2}, packed_host_input=True), ValueError, "packed_host_input"),
     (dict(mesh_shape={"mc": 2}, quantize="int8", use_pallas=False), ValueError,
      "fused pipeline"),
-    (dict(mesh_shape={"dp": 2}), NotImplementedError, "dp mesh axis"),
-    (dict(mesh_shape={"sp": 2}), NotImplementedError, "sp mesh axis"),
+    (dict(mesh_shape={"dp": 2}), ValueError, "epistemic inference is batch-1"),
+    (dict(mesh_shape={"sp": 2}), RuntimeError, "initialised process group of world size 2"),
     (dict(mesh_shape={"mc": 2}, model="aleatoric", inference_mode=False), ValueError,
      "epistemic"),
     (dict(mesh_shape={"data": 2}), ValueError, "unknown mesh axes"),

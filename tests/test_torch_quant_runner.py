@@ -46,7 +46,7 @@ from bayesian_yolov3_torch.models.yolov3 import YoloV3
 from bayesian_yolov3_torch.ops import cuda_quant
 from bayesian_yolov3_torch.parallel import (
     initialize_distributed,
-    make_group,
+    make_groups,
     make_mc_sharded_fused_pipeline,
 )
 
@@ -243,12 +243,12 @@ def test_cli_takes_quantize_int8(use_weights, tmp_path, monkeypatch):
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(quantize="int4"), ValueError, "unknown quantize mode"),
     (dict(mesh_shape={"mc": 2}, use_pallas=False), ValueError, "fused pipeline"),
-    (dict(mesh_shape={"sp": 2}), NotImplementedError, "spatial"),
+    (dict(mesh_shape={"sp": 2}, fixed_mc_masks=None), ValueError,
+     "does not compose with the sp"),
 ])
 def test_runner_int8_rules(kw, exc, match):
-    """The JAX runner's int8 rules: an unknown mode, and int8 over the mc
-    all-gather fallback, are refused; sp is not ported (its int8 refusal
-    comes with it)."""
+    """The JAX runner's int8 rules: an unknown mode, int8 over the mc
+    all-gather fallback, and int8 over the sp axis are refused."""
     with pytest.raises(exc, match=match):
         InferenceRunner(Config(**{**EPI, **kw}), device="cpu")
 
@@ -289,7 +289,7 @@ def _rank_work(rank, out, qh_path, pattern):
     res["rows"], res["valid"] = runner.predict(params, stats, img)
     model = YoloV3.from_config(cfg)
     pipe = make_mc_sharded_fused_pipeline(
-        model, make_group({"mc": WORLD}), MC["T"], priors_by_stride=runner._priors,
+        model, make_groups({"mc": WORLD})["mc"], MC["T"], priors_by_stride=runner._priors,
         obj_idx=model.spec.obj_idx(epistemic=True), nms_max_boxes=50, fixed_masks=SEED)
     res["pipe_rows"], res["pipe_valid"] = (
         a.numpy() for a in pipe(params, stats, torch.from_numpy(img).float() / 255.0,

@@ -181,7 +181,7 @@ def test_runner_loads_wrong_variant_loudly(weights, checkpoint):
 
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(mesh_shape={"mc": 2}), RuntimeError, "initialised process group"),
-    (dict(mesh_shape={"dp": 2}), NotImplementedError, "data-parallel"),
+    (dict(mesh_shape={"dp": 2}), ValueError, "epistemic inference is batch-1"),
     (dict(quantize="int4"), ValueError, "unknown quantize mode"),
     (dict(packed_host_input=True, full_img_size=(48, 96, 3)), AssertionError, "divisible by 32"),
     (dict(crop=True), ValueError, "full images"),
