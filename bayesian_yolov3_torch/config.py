@@ -4,9 +4,8 @@ The reference configures every entry script through a hand-edited Python
 dict.  The same keys are dataclass fields here, with the same defaults as
 the JAX package's ``Config`` so a config file carries over between the two
 packages unchanged.  Keys that belong to parts of the system this package
-does not cover yet (``quantize``, the ``dp`` and ``sp`` axes of
-``mesh_shape``) are kept on the surface; the runner raises on them instead
-of ignoring them.
+does not cover yet (the ``data`` axis of ``mesh_shape``: dp training) are
+kept on the surface; the trainer raises on them instead of ignoring them.
 """
 
 from __future__ import annotations
@@ -104,8 +103,9 @@ class Config:
     quantize: Optional[str] = None
     quant_calib_images: int = 2
     quant_calib_percentile: Optional[float] = None
-    # {'mc': N}: the T MC samples of epistemic inference split over the N
-    # ranks of a process group (parallel/); 'dp' and 'sp' are not ported yet
+    # the axes of inference over the ranks of a process group (parallel/):
+    # 'mc' (the T MC samples), 'dp' (the image batch), 'sp' (the image
+    # rows); 'data' (dp training) is not ported yet
     mesh_shape: Dict[str, int] = dataclasses.field(default_factory=dict)
     max_boxes_per_img: int = 60
     # a tcp rendezvous (host:port) for the process group of a multi-process

@@ -28,7 +28,7 @@ def params_from_jax(params_np: Dict, stats_np: Dict, device="cpu") -> Tuple[Dict
         a = np.asarray(v, dtype=np.float32)
         if name == "w":
             a = a.transpose(3, 2, 0, 1)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return torch.from_numpy(np.array(a, order="C")).to(device)
 
     return _map_leaves(params_np, leaf), _map_leaves(stats_np, leaf)
 
@@ -41,6 +41,22 @@ def params_to_jax(params: Dict, stats: Dict) -> Tuple[Dict, Dict]:
         return np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if name == "w" else a
 
     return _map_leaves(params, leaf), _map_leaves(stats, leaf)
+
+
+def opt_from_jax(opt_np: Dict, device="cpu") -> Dict:
+    """optax Adam state as numpy — ``{"mu": tree, "nu": tree, "count": n}``,
+    the trees shaped like the trainable partition (JAX layout) — -> this
+    package's Adam state (``train.loop.Adam``): float32 tensors on
+    ``device``, every ``w`` moment HWIO -> OIHW, the count an int."""
+    mu, nu = params_from_jax(opt_np["mu"], opt_np["nu"], device)
+    return {"mu": mu, "nu": nu, "count": int(np.asarray(opt_np["count"]))}
+
+
+def opt_to_jax(opt: Dict) -> Dict:
+    """Inverse of ``opt_from_jax``: numpy trees, every ``w`` OIHW -> HWIO,
+    the count as an int32 scalar (optax's)."""
+    mu, nu = params_to_jax(opt["mu"], opt["nu"])
+    return {"mu": mu, "nu": nu, "count": np.asarray(opt["count"], np.int32)}
 
 
 def qheads_from_jax(qh_np: Dict, device="cpu") -> Dict:

@@ -1,13 +1,16 @@
 """Host-side input pipeline: tfrecords -> decoded, batched numpy.
 
-The reader side of the JAX package's ``data/pipeline.py``: record reading,
-PNG decode, batching and a prefetch thread, overlapped with device work.
-(The training loaders belong to the training slice.)
+The counterpart of the JAX package's ``data/pipeline.py``: record reading,
+PNG decode, batching and a prefetch thread, overlapped with device work —
+``TestLoader`` (one ordered epoch, for inference) and ``TrainLoader`` (the
+shuffled, repeating train / val batches).
 
 Output batches are dicts of numpy arrays::
 
     image  (B, H, W, 3) uint8
-    filename (B,) bytes
+    filename (B,) bytes                                  (TestLoader)
+    bbox (B, max_boxes, 4) float32, label (B, max_boxes) int32,
+    valid (B, max_boxes) bool                            (TrainLoader)
 
 PNG needs no PIL: ``decode_png`` uses the libpng helper of the repository's
 ``native/`` directory for 8-bit alpha-free files when that library is built,
@@ -322,6 +325,44 @@ def parse_example(record: bytes, config: Config, with_filename: bool = False) ->
     return out
 
 
+def zero_center(img):
+    """[0,1) -> [-1,1) (present in the reference but wired into no pipeline;
+    the networks consume [0,1) images)."""
+    return 2.0 * (img - 0.5)
+
+
+def _pad(parsed: Dict, max_boxes: int) -> Dict:
+    m = min(len(parsed["bbox"]), max_boxes)
+    bbox = np.zeros((max_boxes, 4), np.float32)
+    label = np.zeros((max_boxes,), np.int32)
+    valid = np.zeros((max_boxes,), bool)
+    bbox[:m] = parsed["bbox"][:m]
+    label[:m] = parsed["label"][:m]
+    valid[:m] = True
+    return {**parsed, "bbox": bbox, "label": label, "valid": valid}
+
+
+class ShuffleBuffer:
+    """Reservoir-style shuffle buffer (tf.data.Dataset.shuffle semantics)."""
+
+    def __init__(self, size: int, rng: np.random.Generator):
+        self.size = max(1, size)
+        self.rng = rng
+        self.buf: List = []
+
+    def __call__(self, it: Iterator) -> Iterator:
+        for item in it:
+            if len(self.buf) < self.size:
+                self.buf.append(item)
+                continue
+            j = int(self.rng.integers(0, self.size))
+            out, self.buf[j] = self.buf[j], item
+            yield out
+        self.rng.shuffle(self.buf)
+        while self.buf:
+            yield self.buf.pop()
+
+
 def _batch(items: List[Dict]) -> Dict[str, np.ndarray]:
     out = {}
     for k in items[0].keys():
@@ -440,3 +481,74 @@ class TestLoader:
                 yield _batch(buf)  # final partial batch
 
         return iter(_Prefetcher(gen))
+
+
+class TrainLoader:
+    """Infinite shuffled train/val batches.
+
+    Several hosts: pass ``host_index`` / ``host_count`` — each host reads a
+    disjoint stripe of the shard files and yields local batches of
+    ``batch_size / host_count`` rows.  With the same seed the batches are
+    the JAX package's ``TrainLoader``'s (both draw from numpy).
+    """
+
+    def __init__(self, config: Config, split: str = "train", seed: int = 0,
+                 host_index: int = 0, host_count: int = 1):
+        self.config = config
+        self.split_cfg = getattr(config, split)
+        self.split = split
+        self.host_index = host_index
+        self.host_count = host_count
+        if config.batch_size % host_count:
+            raise ValueError(f"global batch {config.batch_size} not divisible by "
+                             f"{host_count} hosts")
+        self.local_batch_size = config.batch_size // host_count
+        self.rng = np.random.default_rng(seed + 1031 * host_index)
+        self._prefetcher: Optional[_Prefetcher] = None
+
+    def _epochs(self) -> Iterator[Dict]:
+        """parse -> [cache] -> shuffle -> repeat.  The cache holds PARSED
+        elements (decoded uint8 images + padded GT), so epochs after the
+        first skip record parse and PNG decode; the shuffle comes after it."""
+        cache: Optional[List[Dict]] = [] if self.split_cfg.cache else None
+        first = True
+        while True:  # repeat
+            if cache is not None and not first:
+                parsed_it: Iterator[Dict] = iter(cache)
+            else:
+                records = tfrecord.read_shards(
+                    self.split_cfg.file_pattern, shuffle_rng=self.rng,
+                    shard_index=self.host_index, shard_count=self.host_count,
+                )
+                parsed_it = parallel_map(
+                    lambda rec: _pad(parse_example(rec, self.config),
+                                     self.config.max_boxes_per_img),
+                    records,
+                    self.config.cpu_thread_cnt,
+                )
+                if cache is not None:
+                    parsed_it = self._caching_iter(parsed_it, cache)
+            yield from ShuffleBuffer(self.split_cfg.shuffle_buffer_size, self.rng)(parsed_it)
+            first = False
+
+    @staticmethod
+    def _caching_iter(records, cache):
+        for r in records:
+            cache.append(r)
+            yield r
+
+    def batches(self) -> Iterator[Dict[str, np.ndarray]]:
+        def gen():
+            buf = []
+            for item in self._epochs():
+                buf.append(item)
+                if len(buf) == self.local_batch_size:
+                    yield _batch(buf)
+                    buf = []
+
+        self._prefetcher = _Prefetcher(gen)
+        return iter(self._prefetcher)
+
+    def close(self):
+        if self._prefetcher:
+            self._prefetcher.close()

@@ -16,7 +16,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..ops.common import _bn_affine, conv2d, conv_block, init_conv_block, leaky_relu
+from ..ops.common import (
+    _bn_affine, conv2d, conv_block, conv_block_train, init_conv_block, leaky_relu)
 
 # (kernel_size, out_channels, stride); residual adds are implied by the
 # stage structure below and applied in ``darknet53``.
@@ -211,8 +212,9 @@ def _stem_bn1(gamma, beta, mean, var):
 
 
 def _fused_early_auto(x: torch.Tensor, compute_dtype) -> bool:
-    """Auto-gate for the fused early stages (inference only, as the whole
-    backbone here): bf16 on the card.  A CPU tensor keeps the plain
+    """Auto-gate for the fused early stages of a moving-statistics backbone
+    (the kernels fold BN; batch statistics never reach the gate, see
+    ``darknet53``): bf16 on the card.  A CPU tensor keeps the plain
     convolutions unless the caller passes ``fused_early=True``."""
     return compute_dtype == torch.bfloat16 and x.is_cuda
 
@@ -229,7 +231,13 @@ def darknet53(
     packed_hw=None,
     band=None,
 ):
-    """Run the backbone.  Returns (out_s32, skip_s16, skip_s8, stats).
+    """Run the backbone.  Returns (out_s32, skip_s16, skip_s8, new_stats).
+
+    ``training`` is the backbone's BN mode: True (an unfrozen backbone in
+    training) runs every block with batch statistics through the plain
+    convolutions (``conv_block_train``) and returns the advanced moving
+    statistics; False (inference, or a frozen backbone in training) uses
+    the moving statistics and returns ``stats`` unchanged.
 
     ``fast_stem`` (inference only): the first two convs run in the 2x2
     space-to-depth domain (see ``_stem_kernels``) — numerically the same
@@ -254,8 +262,10 @@ def darknet53(
     of each map.
     """
     if training:
-        raise NotImplementedError("backbone batch-statistics BN belongs to the training slice")
-    if band is not None:
+        if band is not None or packed_hw is not None or fused_early:
+            raise ValueError("batch-statistics BN runs the plain backbone on NHWC images")
+        fused_early = fast_stem = False
+    elif band is not None:
         if fused_early or packed_hw is not None:
             raise ValueError("an sp band runs the unfused backbone on NHWC images")
         fused_early = fast_stem = False
@@ -264,8 +274,14 @@ def darknet53(
     elif fused_early is None:
         fused_early = _fused_early_auto(x, compute_dtype)
 
+    new_stats = {}
+
     def block(i, h, stride):
         name = _conv_name(i)
+        if training:
+            y, new_stats[name] = conv_block_train(params[name], stats[name], h, stride=stride,
+                                                  compute_dtype=compute_dtype)
+            return y
         return conv_block(params[name], stats[name], h, stride=stride,
                           compute_dtype=compute_dtype, band=band)
 
@@ -306,7 +322,7 @@ def darknet53(
         elif i - 1 == SKIP16_IDX:
             skip16 = h
     assert skip8 is not None and skip16 is not None
-    return h, skip16, skip8, stats
+    return h, skip16, skip8, new_stats if training else stats
 
 
 def load_darknet53_weights(weightfile: str, params: Dict, stats: Dict) -> Tuple[Dict, Dict]:

@@ -20,6 +20,7 @@ once; the bayesian variant's dropout then takes a (1, 15) table.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional, Tuple
 
@@ -30,6 +31,7 @@ from ..core.blueprint import ModelBlueprint, Variant, VariantSpec
 from ..core.priors import PriorSet
 from ..ops.common import (
     conv_block,
+    conv_block_train,
     detection_conv,
     detection_conv_cf,
     init_conv_block,
@@ -192,27 +194,72 @@ def _heads(
                  for head, f in enumerate(feats, start=1))
 
 
+def _heads_train(params: Dict, stats: Dict, dn_out, skip16, skip8, *,
+                 site_keys: Optional[np.ndarray], compute_dtype):
+    """The head section in training mode: batch-statistics BN in every
+    block, dropout with one key per site for the whole batch (row 0 of a
+    (1, 15) table; None: no dropout).  Returns ((raw1, raw2, raw3),
+    new_stats of the head blocks)."""
+    new_stats = {}
+
+    def block(name, x, keys):
+        y, new_stats[name] = conv_block_train(
+            params[name], stats[name], x,
+            drop_rate=DROP_PROB if keys is not None else None,
+            drop_key=None if keys is None else keys[0], compute_dtype=compute_dtype)
+        return y
+
+    feats = _walk_heads(dn_out, skip16, skip8, site_keys, block)
+    raws = tuple(detection_conv(params[f"det{head}"], f, compute_dtype=compute_dtype)
+                 for head, f in enumerate(feats, start=1))
+    return raws, new_stats
+
+
 def forward(
     params: Dict,
     stats: Dict,
     imgs: torch.Tensor,
     *,
     spec: VariantSpec,
+    training: bool = False,
+    freeze_backbone: bool = True,
     rng=None,
     standard_test_dropout: bool = False,
     compute_dtype=torch.float32,
     fused_early=None,
     packed_hw=None,
 ):
-    """Single inference forward pass.  Returns (raw1, raw2, raw3): raw_i is
-    the f32 detection-conv output at scale i, (N, H/stride, W/stride,
+    """Single forward pass.  Returns (raw1, raw2, raw3): raw_i is the f32
+    detection-conv output at scale i, (N, H/stride, W/stride,
     3 * head_channels_per_prior).
 
     The bayesian variant draws one set of dropout masks from ``rng`` (a
     CPU ``torch.Generator`` or a (1, 15) key table) unless
     ``standard_test_dropout`` switches dropout off.  ``packed_hw=(H, W)``:
     ``imgs`` is host-packed uint8 planes (see ``darknet.darknet53``).
+
+    ``training=True`` returns ``((raw1, raw2, raw3), new_stats)``: the heads
+    take batch statistics (their moving statistics advanced in
+    ``new_stats``) and, in the bayesian variant, one dropout key per site
+    for the whole batch.  ``freeze_backbone`` (the default training
+    configuration) runs the backbone on its moving statistics without
+    autograd — on the card in bf16 through the fused conv kernels — so its
+    output is a constant and its statistics come back unchanged; False
+    trains it with batch statistics through the plain convolutions.
     """
+    if training:
+        if packed_hw is not None:
+            raise ValueError("training takes NHWC images")
+        with torch.no_grad() if freeze_backbone else contextlib.nullcontext():
+            out32, skip16, skip8, bstats = darknet.darknet53(
+                params["backbone"], stats["backbone"], imgs, training=not freeze_backbone,
+                compute_dtype=compute_dtype, fused_early=fused_early,
+            )
+        raws, new_stats = _heads_train(
+            params, stats, out32, skip16, skip8,
+            site_keys=_batch_keys(spec, rng, standard_test_dropout),
+            compute_dtype=compute_dtype)
+        return raws, {**new_stats, "backbone": bstats}
     out32, skip16, skip8, _ = darknet.darknet53(
         params["backbone"], stats["backbone"], imgs,
         compute_dtype=compute_dtype, fused_early=fused_early, packed_hw=packed_hw,
@@ -385,11 +432,15 @@ class YoloV3:
     def init(self, gen: torch.Generator, device="cpu"):
         return init_yolov3(gen, self.spec, device)
 
-    def forward(self, params, stats, imgs, *, rng=None, standard_test_dropout=False,
-                packed_hw=None):
-        return forward(params, stats, imgs, spec=self.spec, rng=rng,
+    def forward(self, params, stats, imgs, *, training=False, rng=None,
+                standard_test_dropout=False, packed_hw=None, fused_early=None):
+        """``training=True`` freezes the backbone as the model was
+        configured (``freeze_darknet53``) and returns (raws, new_stats)."""
+        return forward(params, stats, imgs, spec=self.spec, training=training,
+                       freeze_backbone=self.freeze_darknet53, rng=rng,
                        standard_test_dropout=standard_test_dropout,
-                       compute_dtype=self._dtype, packed_hw=packed_hw)
+                       compute_dtype=self._dtype, fused_early=fused_early,
+                       packed_hw=packed_hw)
 
     def mc_forward(self, params, stats, img, *, T, rng=None, fixed_masks=None):
         return mc_forward(params, stats, img, spec=self.spec, T=T, rng=rng,

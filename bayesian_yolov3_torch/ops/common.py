@@ -22,7 +22,9 @@ Parameters live in plain dicts of tensors::
     stats[name]  = {'mean': (c,), 'var': (c,)}          # BN moving stats
     params[det]  = {'w': (cout,cin,1,1), 'b': (cout,)}  # detection head
 
-This slice is inference only: batch norm always uses the moving statistics.
+``conv_block`` is the inference block (moving statistics, in place);
+``conv_block_train`` is the training block (batch statistics, out of place
+so that autograd can take the gradient through it).
 """
 
 from __future__ import annotations
@@ -129,11 +131,7 @@ def dropout(x: torch.Tensor, rate: float,
     s = len(keys)
     if x.shape[0] % s:
         raise ValueError(f"leading dim {x.shape[0]} is not a multiple of {s} samples")
-    keep = 1.0 - rate
-    thresh = min(round(keep * 65536.0), 65535)
-    # the divisor in x's own type, as the JAX package's ``x / keep`` takes it
-    # (a weakly typed scalar): 0.8984375 for bf16, not 0.9
-    keep = torch.tensor(keep, dtype=x.dtype).item()
+    thresh, keep = _keep(rate, x.dtype)
     nb = x.shape[0] // s
     per_sample = (nb,) + tuple(x.shape[1:])
     if origin is None:
@@ -146,6 +144,14 @@ def dropout(x: torch.Tensor, rate: float,
         mask = hash_keep(idx, key, thresh)
         xs.div_(keep).masked_fill_(~mask, 0.0)
     return x
+
+
+def _keep(rate: float, dtype):
+    """(16-bit keep threshold, divisor) of a dropout rate; the divisor in the
+    activations' own type, as the JAX package's ``x / keep`` takes it (a
+    weakly typed scalar): 0.8984375 for bf16, not 0.9."""
+    keep = 1.0 - rate
+    return min(round(keep * 65536.0), 65535), torch.tensor(keep, dtype=dtype).item()
 
 
 def _band_index(shape, r0: int, height: int, device) -> torch.Tensor:
@@ -173,16 +179,19 @@ def conv_block(params: Dict, stats: Dict, x: torch.Tensor, *, stride: int = 1,
 
     Dropout runs BEFORE batch norm (reference ordering).  ``drop_keys``:
     one uint32 hash key per MC sample stacked on the leading axis (see
-    ``dropout``).  Batch norm uses the moving statistics; batch-statistics
-    mode belongs to the training slice.
+    ``dropout``).  Batch norm uses the moving statistics.
 
     ``band`` (None: ``x`` is the whole map): ``x`` is an sp rank's band of
     rows (``parallel.spatial.Band``); the conv takes its halo rows from the
     neighbouring ranks (``band.conv``) and the dropout mask is the band's
     rows of the whole map's mask (``band.origin``).
+
+    The block works in place on the conv's output, which autograd cannot
+    differentiate; batch statistics (``training``) are ``conv_block_train``.
     """
     if training:
-        raise NotImplementedError("batch-statistics BN belongs to the training slice")
+        raise ValueError("conv_block is the inference block: batch-statistics BN is "
+                         "conv_block_train, which also returns the new statistics")
     conv = conv2d if band is None else band.conv
     y = conv(x.to(compute_dtype), params["w"].to(compute_dtype), stride=stride)
     if drop_rate is not None and drop_rate > 0.0:
@@ -194,6 +203,36 @@ def conv_block(params: Dict, stats: Dict, x: torch.Tensor, *, stride: int = 1,
     scale, bias = _bn_affine(params["gamma"], params["beta"], stats["mean"], stats["var"])
     y.mul_(scale).add_(bias)
     return F.leaky_relu_(y, LEAKY_ALPHA).to(compute_dtype)
+
+
+def conv_block_train(params: Dict, stats: Dict, x: torch.Tensor, *, stride: int = 1,
+                     drop_rate: Optional[float] = None, drop_key=None,
+                     compute_dtype=torch.float32):
+    """conv -> [dropout] -> batch-statistics BN -> LeakyReLU(0.1), NHWC,
+    out of place.  Returns ``(y, new_stats)``.
+
+    Mean and biased variance over (N, H, W) in float32; the new moving
+    statistics are ``old * 0.99 + batch * 0.01`` (TF semantics; neither
+    ``F.batch_norm`` nor ``nn.BatchNorm2d``, which advance the variance with
+    the unbiased estimate).  ``drop_key``: the site's one uint32 key for the
+    whole batch (``dropout`` with one key: the mask indexes the flat NHWC
+    index of the whole batch, as the JAX package's training dropout does).
+    Dropout works in place on the conv's output, which the conv's backward
+    does not save; BN and the activation are out of place.
+    """
+    y = conv2d(x.to(compute_dtype), params["w"].to(compute_dtype), stride=stride)
+    if drop_rate is not None and drop_rate > 0.0:
+        if drop_key is None:
+            raise ValueError("dropout requires a key")
+        y = dropout(y, drop_rate, drop_key)
+    y = y.float()
+    mean = y.mean(dim=(0, 1, 2))
+    var = (y - mean).square().mean(dim=(0, 1, 2))
+    with torch.no_grad():
+        new_stats = {"mean": stats["mean"] * BN_MOMENTUM + mean * (1.0 - BN_MOMENTUM),
+                     "var": stats["var"] * BN_MOMENTUM + var * (1.0 - BN_MOMENTUM)}
+    scale, bias = _bn_affine(params["gamma"], params["beta"], mean, var)
+    return leaky_relu(y * scale + bias).to(compute_dtype), new_stats
 
 
 def detection_conv(params: Dict, x: torch.Tensor, *, compute_dtype=torch.float32):

@@ -1,2 +1,2 @@
-from .loop import merge_params, partition_params  # noqa: F401
+from .loop import Trainer, merge_params, partition_params  # noqa: F401
 from .checkpoints import CheckpointStore  # noqa: F401

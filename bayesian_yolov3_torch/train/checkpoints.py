@@ -2,7 +2,10 @@
 
 Each step directory holds one ``.npz`` with the state's trees flattened to
 ``/``-joined names (``params/head1_conv0/w`` ...), tensors as this package
-keeps them (conv kernels OIHW).  ``resume='last'`` restores the newest
+keeps them (conv kernels OIHW).  A training state has the JAX package's
+layout: ``params`` (the trainable partition), ``frozen``, ``stats``, ``opt``
+(Adam's ``mu`` and ``nu`` trees and its ``count``) and ``step``; integers
+are stored as 0-d arrays.  ``resume='last'`` restores the newest
 step; at most ``max_to_keep`` steps are kept; a config JSON snapshot can be
 written next to the checkpoints.
 """
@@ -68,9 +71,16 @@ class CheckpointStore:
             for old in self.all_steps()[:-self.max_to_keep]:
                 shutil.rmtree(os.path.join(self.dir, str(old)))
 
+    def restore(self, state_like: Dict[str, Any], step: Any = "last"):
+        """Restore a whole training state (params, frozen, stats, opt, step)
+        into the structure of ``state_like``: tensors as CPU tensors, int
+        leaves as ints.  Returns (state, step)."""
+        return self.restore_partial(state_like, step)
+
     def restore_partial(self, like: Dict[str, Any], step: Any = "last"):
         """Restore the trees named by the top-level keys of ``like`` (e.g.
-        params/frozen/stats for inference) as CPU tensors.
+        params/frozen/stats for inference) as CPU tensors (an int leaf of
+        ``like`` comes back as an int).
 
         Every leaf of ``like`` must be in the checkpoint with the same
         shape; a checkpoint of a different model variant (e.g. det convs 21
@@ -88,22 +98,20 @@ class CheckpointStore:
             if missing:
                 raise KeyError(f"checkpoint at step {step} lacks keys {missing}")
 
-            def restore(tree, prefix):
-                out = {}
-                for k, want in tree.items():
-                    name = f"{prefix}{k}"
-                    if isinstance(want, dict):
-                        out[k] = restore(want, name + "/")
-                        continue
-                    got = saved[name] if name in saved.files else None
-                    ws, gs = tuple(want.shape), None if got is None else got.shape
-                    if ws != gs:
-                        mismatches.append(f"{name}: checkpoint {gs} vs model {ws}")
-                    else:
-                        out[k] = torch.from_numpy(got)
-                return out
+            def leaf(name, want):
+                got = saved[name] if name in saved.files else None
+                ws = () if isinstance(want, int) else tuple(want.shape)
+                gs = None if got is None else got.shape
+                if ws != gs:
+                    mismatches.append(f"{name}: checkpoint {gs} vs model {ws}")
+                    return None
+                return int(got) if isinstance(want, int) else torch.from_numpy(got)
 
-            out = {k: restore(like[k], k + "/") for k in like}
+            def restore(tree, prefix):
+                return {k: restore(want, f"{prefix}{k}/") if isinstance(want, dict)
+                        else leaf(f"{prefix}{k}", want) for k, want in tree.items()}
+
+            out = restore(like, "")
         if mismatches:
             raise ValueError(
                 f"checkpoint at step {step} does not match this model's "

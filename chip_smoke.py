@@ -4,6 +4,7 @@ NVIDIA Hopper GPU.  Run from the repository root, no arguments, one card:
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels   # build, ptxas and the kernel checks only
+    python3 chip_smoke.py --train     # build and the training phase only
 
 It imports only ``bayesian_yolov3_torch``, torch, numpy and the standard
 library; needs a CUDA device (exits non-zero without one) and ``nvcc``
@@ -93,6 +94,27 @@ main_path_sp
             ms per frame; peak memory of one frame per rank beside the
             single device's
 
+main_path_train
+            training through Trainer.run() at full width: the pretraining
+            configuration (aleatoric, crops of 768x1440 from 1024x1920
+            frames, batch 8, bf16, the frozen backbone on the three fused
+            conv kernels) for 6 steps, a checkpoint every 3, one val step;
+            then the uncertainty configuration (bayesian, aleatoric loss,
+            batch 2) warm-started from it for 3 steps; launches a step
+            (stem 1, res block 11, downsample 2), finite losses, the backbone
+            and its statistics bit-unchanged, every head leaf moved; step 1
+            through the fused kernels against the plain cuDNN bf16 step
+            (loss rtol 5e-3; the backbone's outputs at relative L2 1e-2; with
+            the heads in float32, the detection convs' gradients at 2.5e-2,
+            and the median and 90th percentile over every head leaf within
+            2x those of a control, the plain bf16 backbone against the
+            plain float32 one) and the card's step against the CPU's at
+            64x96 (float32 on the CPU tests' weights: loss rtol 1e-5, every
+            leaf's gradient 1e-4; float64 on the smoke's weights: 1e-12,
+            every leaf 1e-10); ms a step, img/s, preprocess / forward with
+            loss / backward / Adam each alone, the host loader's time a
+            batch, peak memory
+
 Then the card line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
 then exits non-zero and prints no result line.  The multi-rank phases
@@ -121,7 +143,7 @@ from bayesian_yolov3_torch.config import Config, DataConfig
 from bayesian_yolov3_torch.convert import tree_to
 from bayesian_yolov3_torch.core.blueprint import Variant, VariantSpec
 from bayesian_yolov3_torch.core.priors import priors_as_array
-from bayesian_yolov3_torch.data import pipeline, proto, tfrecord
+from bayesian_yolov3_torch.data import encode, pipeline, proto, tfrecord
 from bayesian_yolov3_torch.infer.detect import Detector
 from bayesian_yolov3_torch.infer.ecp import bbox_to_ecp_format
 from bayesian_yolov3_torch.infer.runner import InferenceRunner
@@ -130,10 +152,12 @@ from bayesian_yolov3_torch.models import quant as mquant
 from bayesian_yolov3_torch.ops import (
     _build, common, cuda_conv, cuda_decode, cuda_epistemic, cuda_moments, cuda_nms, cuda_quant,
     decode, nms, quant)
+from bayesian_yolov3_torch.ops import loss as loss_ops
 from bayesian_yolov3_torch.parallel import (
     initialize_distributed, local_rows, make_groups, make_mc_sharded_fused_pipeline)
 from bayesian_yolov3_torch.parallel.mesh import Group
 from bayesian_yolov3_torch.train.checkpoints import CheckpointStore
+from bayesian_yolov3_torch.train import loop as train_loop
 from bayesian_yolov3_torch.train.loop import partition_params
 
 # published peaks of one H100 SXM (NVIDIA data sheet): the yardstick of bound_ms
@@ -2793,6 +2817,444 @@ def main_path_sp(tmp, dev, card, b_runner, b_runner32):
     return out
 
 
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_INTERVAL, WARM_STEPS = 6, 3, 3
+TRAIN_FRAMES = 16  # two batches of 8 an epoch
+# the frozen backbone's fused conv kernels: launches a training step
+TRAIN_LAUNCHES = {"fused_stem": 1, "fused_res_block": 11, "fused_downsample": 2}
+# step 1 through the fused kernels against the plain cuDNN bf16 step: loss
+# rtol (tests/test_train_oracle.py:247's bf16 bound), the backbone's three
+# outputs at relative L2 (small_ref's fused-chain bound), and the detection
+# convs' gradients at relative L2 (tests/test_train_oracle.py:242's bound
+# across implementations) with the heads in float32
+TRAIN_FUSED_TOL = {"loss": 5e-3, "backbone": 1e-2, "det_grad": 2.5e-2}
+# the card's step against the CPU's at 64x96: in float32 the loss rtol and
+# every trainable leaf's gradient at relative L2 (tests/test_torch_train.py's
+# float32 bounds); in float64 the same at the bounds of that file's float64
+# test
+TRAIN_F32_TOL = {"loss": 1e-5, "grad": 1e-4}
+TRAIN_F64_TOL = {"loss": 1e-12, "grad": 1e-10}
+# fused vs plain bf16, all head leaves with the heads in float32: the median
+# and 90th percentile of the leaves' gradient gaps at most this many times
+# those of the control (the plain bf16 backbone against the plain float32
+# one: the spread that bf16 rounding of the backbone alone gives)
+TRAIN_SPREAD_RATIO = 2.0
+DET_LEAVES = tuple(f"det{i}/{k}" for i in (1, 2, 3) for k in ("w", "b"))
+TIMED_STEPS = 6
+
+
+def train_frame(rng, hw):
+    """A seeded frame with 1-8 upright boxes painted on it: (image, boxes
+    [ymin, xmin, ymax, xmax] normalized, labels 1..C before the background
+    shift)."""
+    h, w = hw
+    img = seeded_frame(rng, hw)
+    n = int(rng.integers(1, 9))
+    bh = rng.uniform(0.05, 0.4, n)
+    bw = bh * rng.uniform(0.3, 0.5, n) * h / w
+    y0, x0 = rng.uniform(0, 1 - bh), rng.uniform(0, 1 - bw)
+    boxes = np.stack([y0, x0, y0 + bh, x0 + bw], axis=1).astype(np.float32)
+    for b in boxes:
+        r0, c0, r1, c1 = (b * [h, w, h, w]).astype(int)
+        img[r0:r1, c0:c1] = rng.integers(160, 256, 3, dtype=np.uint8)
+    return img, boxes, rng.integers(1, C + 1, n)
+
+
+def write_train_records(path, rng, n, hw):
+    """n annotated frames as PNG in one tfrecord (the TF Object Detection
+    API fields the train loader parses)."""
+    os.makedirs(path, exist_ok=True)
+    with tfrecord.TFRecordWriter(os.path.join(path, "train-00000-of-00001.tfrecord")) as wr:
+        for i in range(n):
+            img, boxes, labels = train_frame(rng, hw)
+            wr.write(proto.encode_example({
+                "image/encoded": [pipeline.encode_png(img, level=1)],
+                "image/filename": [f"train_{i:04d}.png".encode()],
+                "image/object/bbox/ymin": boxes[:, 0], "image/object/bbox/xmin": boxes[:, 1],
+                "image/object/bbox/ymax": boxes[:, 2], "image/object/bbox/xmax": boxes[:, 3],
+                "image/object/class/label": labels.astype(np.int64),
+            }))
+    return os.path.join(path, "train-*-of-*.tfrecord")
+
+
+def train_config(tmp, defaults, pattern, **kw):
+    """A training CLI's DEFAULTS with the smoke's paths, data and steps."""
+    split = {"file_pattern": pattern}
+    return Config.from_dict({
+        **defaults, "run_id": "smoke_train", "darknet53_weights": "", "cpu_thread_cnt": 6,
+        "checkpoint_path": os.path.join(tmp, "ckpt_train"), "ckp_max_to_keep": 2,
+        "tensorboard_path": os.path.join(tmp, "tb"), "log_path": os.path.join(tmp, "log"),
+        "train": {**defaults["train"], **split}, "val": {**defaults["val"], **split}, **kw})
+
+
+def _rel_l2(got, want):
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _named_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _step1(step_fn, state, imgs, gts, keys):
+    """Step 1's total loss and gradients of the trainable leaves, no update."""
+    total, _ = step_fn.loss_fn(state["params"], state["frozen"], state["stats"], imgs, gts,
+                               keys)
+    grads = torch.autograd.grad(total, train_loop.leaves(state["params"]))
+    names = [n for n, _ in _named_leaves(state["params"])]
+    return float(total.detach()), dict(zip(names, grads))
+
+
+def _grads_agree(name, got, want, bound, bounded=DET_LEAVES):
+    """Relative L2 of every trainable leaf's gradient, each leaf of
+    ``bounded`` (None: every leaf) within ``bound``; the detection convs',
+    the worst leaf, the median and the 90th percentile over all leaves
+    reported."""
+    rels = {k: _rel_l2(got[k], want[k]) for k in want}
+    worst = max(rels, key=rels.get)
+    det = {k: rels[k] for k in DET_LEAVES}
+    out = {"det_grad_rel_l2": det, "max_det_grad_rel_l2": max(det.values()),
+           "all_leaves_max_grad_rel_l2": rels[worst], "all_leaves_max_leaf": worst,
+           "all_leaves_median_grad_rel_l2": float(np.median(list(rels.values()))),
+           "all_leaves_p90_grad_rel_l2": float(np.percentile(list(rels.values()), 90))}
+    bad = {k: rels[k] for k in (rels if bounded is None else bounded) if not rels[k] <= bound}
+    check(not bad, f"{name}: gradients at relative L2 {bad} > {bound}")
+    return out
+
+
+@contextlib.contextmanager
+def float64_casts():
+    """The port's training step in float64, for the precision comparison
+    only: its ``.float()`` casts (BN statistics, the decode, the loss) read
+    as ``.double()`` and ``compute_dtype="float64"`` is known."""
+    cast = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    yolov3._DTYPES["float64"] = torch.float64
+    try:
+        yield
+    finally:
+        torch.Tensor.float = cast
+        del yolov3._DTYPES["float64"]
+
+
+def parity_weights(seed, spec):
+    """The CPU tests' seeded weights (``tests/torch_parity.py:numpy_weights``,
+    copied: the smoke imports nothing of the tests), drawn in the same order
+    from the same numpy generator: variance-preserving kernels (gain 2),
+    damped residual branches in the backbone (gain 0.6), gamma and var
+    uniform in [0.8, 1.2], beta, mean and biases N(0, 0.01).  CPU tensors,
+    kernels OIHW."""
+    rng = np.random.default_rng(seed)
+    straight = {"conv_00", "conv_01", "conv_04", "conv_09", "conv_26", "conv_43"}
+
+    def leaf(block, name, t):
+        if name == "w":
+            o, i, kh, kw = t.shape
+            gain = 0.6 if block.startswith("conv_") and block not in straight else 2.0
+            a = rng.standard_normal((kh, kw, i, o)).astype(np.float32) * np.float32(
+                np.sqrt(gain / (kh * kw * i)))
+            return torch.from_numpy(np.ascontiguousarray(a.transpose(3, 2, 0, 1)))
+        if name in ("gamma", "var"):
+            return torch.from_numpy(rng.uniform(0.8, 1.2, t.shape).astype(np.float32))
+        return torch.from_numpy((rng.standard_normal(t.shape) * 0.1).astype(np.float32))
+
+    def walk(tree, block=""):
+        return {k: walk(v, k) if isinstance(v, dict) else leaf(block, k, v)
+                for k, v in tree.items()}
+
+    params, stats = yolov3.init_yolov3(torch.Generator(), spec, "meta")
+    return walk(params), walk(stats)
+
+
+def _loss_agree(name, got, want, rtol):
+    rel = abs(got - want) / abs(want)
+    check(np.isfinite(got) and rel <= rtol, f"{name}: step-1 loss {got} vs {want} (rtol {rtol})")
+    return {"loss": got, "loss_ref": want, "loss_rel_err": rel}
+
+
+def _train_launches(name, launches, steps):
+    for k, per in TRAIN_LAUNCHES.items():
+        check(launches[k] == per * steps,
+              f"{name}: {k} launched {launches[k]} times in {steps} steps, want {per} a step")
+    return {k: launches[k] / steps for k in TRAIN_LAUNCHES}
+
+
+def train_small_reference(dev):
+    """64x96, batch 2, bayesian with the aleatoric loss: step 1 on the card
+    (cuDNN, TF32 off) against step 1 on the CPU, the same preprocessed batch
+    and dropout keys.
+
+    * float32 with the CPU tests' weights (``parity_weights(0)``): the loss
+      and every trainable leaf's gradient at ``TRAIN_F32_TOL``.
+    * float64 with the smoke's seeded weights (``random_state(3)``): the loss
+      and every leaf at ``TRAIN_F64_TOL``.  In float32 these weights put
+      LeakyReLU inputs next to 0, where two float32 steps take different
+      slopes; their float32 card-vs-CPU gaps and the CPU's own float32
+      against float64 are reported beside (``float32_kinks``)."""
+    cfg = Config(model="bayesian", full_img_size=(64, 96, 3), batch_size=2,
+                 max_boxes_per_img=8, compute_dtype="float32", aleatoric_loss=True,
+                 darknet53_weights="", lr=1e-5)
+    model = yolov3.YoloV3.from_config(cfg)
+    tables = encode.build_prior_tables(model.blueprint)
+    step, _, _ = train_loop.make_train_step(model, cfg, tables)
+    rng = np.random.default_rng(12)
+    frames = [train_frame(rng, (64, 96)) for _ in range(2)]
+    batch = {"image": np.stack([f[0] for f in frames])}
+    for k, v in zip(("bbox", "label", "valid"), zip(*(encode.pad_boxes(f[1], f[2] - 1, 8)
+                                                       for f in frames))):
+        batch[k] = np.stack(v)
+    imgs, gts = step.preprocess({k: torch.from_numpy(v) for k, v in batch.items()}, 0)
+    keys = train_loop.dropout_keys(0, 0)
+
+    def step1(d, weights, dtype):
+        params, stats = weights
+        cast = (lambda t: t.double()) if dtype == "float64" else (lambda t: t)
+        tree = lambda t: {k: tree(v) if isinstance(v, dict) else cast(v.detach().to(d))
+                          for k, v in t.items()}
+        trainable, frozen = train_loop.partition_params(tree(params), True)
+        for leaf in train_loop.leaves(trainable):
+            leaf.requires_grad_(True)
+        state = {"params": trainable, "frozen": frozen, "stats": tree(stats)}
+        model.compute_dtype = dtype
+        with float64_casts() if dtype == "float64" else contextlib.nullcontext():
+            return _step1(step, state, cast(imgs.to(d)),
+                          [{k: v.to(d) for k, v in g.items()} for g in gts], keys)
+
+    card = str(dev)
+    parity = parity_weights(0, cfg.variant_spec)
+    f32 = {d: step1(d, parity, "float32") for d in ("cpu", card)}
+    name = "train small_ref float32"
+    out = {**_loss_agree(name, f32[card][0], f32["cpu"][0], TRAIN_F32_TOL["loss"]),
+           **_grads_agree(name, f32[card][1], f32["cpu"][1], TRAIN_F32_TOL["grad"], None)}
+    seeded = random_state(3, cfg.variant_spec, "cpu")
+    runs = {(d, t): step1(d, seeded, t) for d in ("cpu", card) for t in ("float32", "float64")}
+    name = "train small_ref float64"
+    out["float64"] = {
+        **_loss_agree(name, runs[card, "float64"][0], runs["cpu", "float64"][0],
+                      TRAIN_F64_TOL["loss"]),
+        **_grads_agree(name, runs[card, "float64"][1], runs["cpu", "float64"][1],
+                       TRAIN_F64_TOL["grad"], None)}
+    inf = float("inf")
+    out["float32_kinks"] = {
+        "card_vs_cpu": _grads_agree("", runs[card, "float32"][1], runs["cpu", "float32"][1], inf),
+        "cpu_float32_vs_float64": _grads_agree("", runs["cpu", "float32"][1],
+                                               runs["cpu", "float64"][1], inf)}
+    model.compute_dtype = "float32"
+    return out
+
+
+def train_fused_vs_plain(trainer, cfg, state, imgs, gts, keys):
+    """Step 1 with the frozen backbone through the fused conv kernels against
+    the same step through the plain cuDNN bf16 convolutions (``fused_early
+    =False``): the bf16 step's loss; the backbone's three outputs; and, with
+    the heads in float32 on each backbone's outputs, the gradients — the
+    detection convs' each at ``TRAIN_FUSED_TOL``, and the median and 90th
+    percentile over every head leaf within ``TRAIN_SPREAD_RATIO`` times
+    those of the control, the plain bf16 backbone against the plain float32
+    one under the same float32 heads."""
+    out, grads, feats = {}, {}, {}
+    losses = {}
+    for fused in (None, False):
+        step, _, _ = train_loop.make_train_step(trainer.model, cfg, trainer.tables,
+                                                fused_early=fused)
+        losses[fused], grads[fused] = _step1(step, state, imgs, gts, keys)
+    inf = float("inf")
+    out["bf16_step"] = {**_loss_agree("train fused vs plain", losses[None], losses[False],
+                                      TRAIN_FUSED_TOL["loss"]),
+                        **_grads_agree("", grads[None], grads[False], inf)}
+    params = train_loop.merge_params(state["params"], state["frozen"])
+    names = [n for n, _ in _named_leaves(state["params"])]
+    for fused, dtype in ((True, torch.bfloat16), (False, torch.bfloat16),
+                         ("float32", torch.float32)):
+        with torch.no_grad():
+            o32, s16, s8, _ = darknet.darknet53(
+                params["backbone"], state["stats"]["backbone"], imgs,
+                compute_dtype=dtype, fused_early=fused is True)
+        feats[fused] = [t.float() for t in (o32, s16, s8)]
+        raws, _ = yolov3._heads_train(params, state["stats"], *feats[fused], site_keys=None,
+                                      compute_dtype=torch.float32)
+        dets = [decode.split_detection(raw, trainer.model.spec) for raw in raws]
+        total, _ = loss_ops.total_loss(dets, gts, params, bool(cfg.aleatoric_loss))
+        grads[fused] = dict(zip(names, torch.autograd.grad(total, train_loop.leaves(
+            state["params"]))))
+    out["backbone_rel_l2"] = [_rel_l2(a, b) for a, b in zip(feats[True], feats[False])]
+    check(max(out["backbone_rel_l2"]) <= TRAIN_FUSED_TOL["backbone"],
+          f"train fused vs plain: backbone outputs at relative L2 {out['backbone_rel_l2']}")
+    out["float32_heads"] = _grads_agree("train fused vs plain (float32 heads)", grads[True],
+                                        grads[False], TRAIN_FUSED_TOL["det_grad"])
+    out["control_backbone_rel_l2"] = [_rel_l2(a, b) for a, b in
+                                      zip(feats[False], feats["float32"])]
+    out["control_float32_heads"] = _grads_agree("", grads[False], grads["float32"], inf)
+    for q in ("median", "p90"):
+        key = f"all_leaves_{q}_grad_rel_l2"
+        got, ctl = out["float32_heads"][key], out["control_float32_heads"][key]
+        check(got <= TRAIN_SPREAD_RATIO * ctl,
+              f"train fused vs plain (float32 heads): the {q} of the head leaves' gradient "
+              f"gaps {got} > {TRAIN_SPREAD_RATIO} x the bf16-vs-float32 control's {ctl}")
+    return out
+
+
+def main_path_train(tmp, dev, card):
+    """Training at full width through ``Trainer.run()``: the pretraining
+    configuration (aleatoric, no aleatoric loss, crops of 768x1440 from
+    1024x1920 frames, batch 8, bf16, frozen backbone on the fused conv
+    kernels) for 6 steps with a checkpoint every 3, one val step, then the
+    uncertainty configuration (bayesian, aleatoric loss, batch 2) warm-started
+    from its last checkpoint for 3 steps; launches, losses, the frozen
+    backbone and the moved heads checked; step 1 through the fused kernels
+    against the plain cuDNN bf16 step; times."""
+    from bayesian_yolov3_torch.cli import pretraining, uncertainty_training
+
+    pattern = write_train_records(os.path.join(tmp, "train_data"), np.random.default_rng(21),
+                                  TRAIN_FRAMES, IMG[:2])
+    cfg = train_config(tmp, pretraining.DEFAULTS, pattern, train_steps=TRAIN_STEPS,
+                       checkpoint_interval=TRAIN_INTERVAL)
+    check(cfg.crop and cfg.img_size == (768, 1440, 3) and cfg.batch_size == 8
+          and cfg.compute_dtype == "bfloat16" and cfg.freeze_darknet53
+          and cfg.model == "aleatoric" and not cfg.aleatoric_loss,
+          f"the pretraining configuration changed: {cfg}")
+    trainer = train_loop.Trainer(cfg, device=dev)
+    fresh = trainer.fresh_state()  # the run's own init (same seed)
+    out = {"config": {"model": cfg.model, "crop": list(cfg.img_size), "batch": cfg.batch_size,
+                      "compute_dtype": cfg.compute_dtype, "steps": TRAIN_STEPS}}
+
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = trainer.run()
+    torch.cuda.synchronize()
+    out["run_wall_s"] = time.perf_counter() - t0
+    launches = read_counters()
+    out["launches_per_step"] = _train_launches("pretraining run", launches, TRAIN_STEPS)
+    out["losses"] = res["losses"]
+    check(res["step"] == TRAIN_STEPS and len(res["losses"]) == TRAIN_STEPS
+          and all(np.isfinite(res["losses"])), f"pretraining run: {res['step']} steps, "
+                                              f"losses {res['losses']}")
+    check(trainer.store.all_steps() == [TRAIN_INTERVAL, TRAIN_STEPS],
+          f"checkpoints {trainer.store.all_steps()}")
+    state = res["state"]
+    for (name, a), (_, b) in zip(_named_leaves(fresh["frozen"]), _named_leaves(state["frozen"])):
+        check(torch.equal(a, b), f"frozen backbone {name} changed")
+    for (name, a), (_, b) in zip(_named_leaves(fresh["stats"]["backbone"]),
+                                 _named_leaves(state["stats"]["backbone"])):
+        check(torch.equal(a, b), f"frozen backbone statistics {name} changed")
+    still = [n for (n, a), (_, b) in zip(_named_leaves(fresh["params"]),
+                                          _named_leaves(state["params"])) if torch.equal(a, b)]
+    check(not still, f"head leaves that did not move: {still}")
+    out["heads_moved"] = len(train_loop.leaves(state["params"]))
+    val_loader = pipeline.TrainLoader(cfg, "val", seed=2)
+    try:
+        vm = trainer.eval_step_fn(state, trainer._place_batch(next(val_loader.batches())))
+    finally:
+        val_loader.close()
+    out["val"] = {k: float(v) for k, v in vm.items()}
+    check(all(np.isfinite(v) for v in out["val"].values()), f"val metrics {out['val']}")
+
+    # the uncertainty run: bayesian, aleatoric loss, batch 2, warm-started
+    cfg2 = train_config(tmp, uncertainty_training.DEFAULTS, pattern,
+                        train_steps=TRAIN_STEPS + WARM_STEPS)
+    check(cfg2.resume_training and cfg2.model == "bayesian" and cfg2.aleatoric_loss
+          and cfg2.batch_size == 2, f"the uncertainty configuration changed: {cfg2}")
+    reset_counters()
+    res2 = train_loop.Trainer(cfg2, device=dev).run()
+    torch.cuda.synchronize()
+    out["warm_start"] = {"losses": res2["losses"], "launches_per_step": _train_launches(
+        "uncertainty run", read_counters(), WARM_STEPS)}
+    check(res2["step"] == TRAIN_STEPS + WARM_STEPS and len(res2["losses"]) == WARM_STEPS
+          and all(np.isfinite(res2["losses"])) and res2["state"]["opt"]["count"] ==
+          TRAIN_STEPS + WARM_STEPS, f"uncertainty run: step {res2['step']}, {res2['losses']}")
+    del res2
+
+    # step 1 through the fused kernels against the plain cuDNN bf16 step
+    batches = trainer_batches(cfg)
+    host = next(batches)
+    batches.close()
+    batch = trainer._place_batch(host)
+    imgs, gts = trainer.train_step_fn.preprocess(batch, 0)
+    keys = train_loop.dropout_keys(0, 0)
+    out["fused_vs_plain"] = train_fused_vs_plain(trainer, cfg, fresh, imgs, gts, keys)
+    out["cpu_vs_card"] = train_small_reference(dev)
+    out["timing"] = train_timing(trainer, cfg, state, batch, host, keys)
+    return out
+
+
+def trainer_batches(cfg):
+    """The first host batches of the train loader (closed after)."""
+    loader = pipeline.TrainLoader(cfg, "train", seed=1)
+    try:
+        yield from loader.batches()
+    finally:
+        loader.close()
+
+
+def train_timing(trainer, cfg, state, batch, host, keys):
+    """ms per step by CUDA events (the median of the steps after the first),
+    img/s, each part of the step timed alone — the preprocess, the forward
+    with the loss, the backward, Adam — the host loader's time per batch
+    and the peak memory of one step."""
+    step = trainer.train_step_fn
+    out = {"card_batch": cfg.batch_size}
+    times = []
+    for _ in range(TIMED_STEPS + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    out["ms_per_step"] = float(np.median(times[1:]))
+    out["step_readings_ms"] = times
+    out["img_per_s"] = cfg.batch_size / (out["ms_per_step"] / 1e3)
+    imgs, gts = step.preprocess(batch, 0)
+    out["preprocess_ms"] = event_ms(lambda: step.preprocess(batch, 0), 5)
+
+    def fwd():
+        return step.loss_fn(state["params"], state["frozen"], state["stats"], imgs, gts, keys)
+
+    out["forward_loss_ms"] = event_ms(fwd, 5)
+    leaves = train_loop.leaves(state["params"])
+    bwd, adam = [], []
+    for _ in range(5):
+        total, _ = fwd()
+        torch.cuda.synchronize()
+        bwd.append(event_ms(lambda: torch.autograd.grad(total, leaves), 1))
+        grads = torch.autograd.grad(fwd()[0], leaves)
+        adam.append(event_ms(lambda: trainer.optimizer.update(grads, state["opt"],
+                                                              state["params"]), 1))
+    out["backward_ms"], out["adam_ms"] = float(np.median(bwd)), float(np.median(adam))
+    # the host's time to enqueue each part (the card drained before, not
+    # after): a part whose enqueue takes as long as its events read is
+    # bound by the host
+    torch.cuda.synchronize()
+    out["preprocess_host_ms"] = _host_s(lambda: step.preprocess(batch, 0)) * 1e3
+    torch.cuda.synchronize()
+    total, _ = fwd()
+    out["forward_loss_host_ms"] = _host_s(fwd) * 1e3
+    torch.cuda.synchronize()
+    out["backward_host_ms"] = _host_s(lambda: torch.autograd.grad(total, leaves)) * 1e3
+    torch.cuda.synchronize()
+    out["step_host_ms"] = _host_s(lambda: step(state, batch)) * 1e3
+    torch.cuda.synchronize()
+    parts = out["preprocess_ms"] + out["forward_loss_ms"] + out["backward_ms"] + out["adam_ms"]
+    out["share"] = {k: out[f"{k}_ms"] / parts
+                    for k in ("preprocess", "forward_loss", "backward", "adam")}
+    out["peak_mem_GB_one_step"] = _peak_gb(lambda: step(state, batch))
+    loader = trainer_batches(cfg)
+    next(loader)
+    lt = [_host_s(lambda: next(loader)) * 1e3 for _ in range(4)]
+    loader.close()
+    out["loader_ms_per_batch"] = float(np.median(lt))
+    out["loader_threads"] = cfg.cpu_thread_cnt
+    return out
+
+
 def _numbers(d):
     """The flat numbers of a phase's result (no nested dicts, lists or flags)."""
     return {k: v for k, v in d.items()
@@ -2804,7 +3266,8 @@ def _peaks(summary):
             if isinstance(run, dict) and "peak_mem_GB" in run}
 
 
-def summarize(main_summary, timings, split, mc, mc2, b_summary, b_timings, gemm, int8, dp, sp):
+def summarize(main_summary, timings, split, mc, mc2, b_summary, b_timings, gemm, int8, dp, sp,
+              train):
     """One compact line of the numbers each phase measured (ms per frame,
     stages, all-reduce, peak memory of every run, launches per frame),
     printed just before the kernels line so that the end of the output
@@ -2842,6 +3305,24 @@ def summarize(main_summary, timings, split, mc, mc2, b_summary, b_timings, gemm,
             "launches": bat["aleatoric"]["launches"],
             "raws_max_err_over_scale": bat["aleatoric"]["raws_vs_bf16"]["max_err_over_scale"]}}
     out["dp"], out["sp"] = _ranks_summary(dp), _ranks_summary(sp)
+    t = train["timing"]
+    out["train"] = {
+        **{k: t[k] for k in ("ms_per_step", "img_per_s", "preprocess_ms", "forward_loss_ms",
+                             "backward_ms", "adam_ms", "loader_ms_per_batch",
+                             "peak_mem_GB_one_step")},
+        "run_wall_s": train["run_wall_s"], "launches_per_step": train["launches_per_step"],
+        "fused_vs_plain": {
+            "loss_rel_err": train["fused_vs_plain"]["bf16_step"]["loss_rel_err"],
+            "backbone_rel_l2": train["fused_vs_plain"]["backbone_rel_l2"],
+            **{f"{k}_grad_rel_l2": train["fused_vs_plain"]["float32_heads"][
+                f"{k}_grad_rel_l2"] for k in ("max_det", "all_leaves_median", "all_leaves_p90")},
+            "control_backbone_rel_l2": train["fused_vs_plain"]["control_backbone_rel_l2"],
+            **{f"control_{k}_grad_rel_l2": train["fused_vs_plain"]["control_float32_heads"][
+                f"{k}_grad_rel_l2"] for k in ("all_leaves_median", "all_leaves_p90")}},
+        "cpu_vs_card_float32": {k: train["cpu_vs_card"][k]
+                                for k in ("loss_rel_err", "all_leaves_max_grad_rel_l2")},
+        "cpu_vs_card_float64": {k: train["cpu_vs_card"]["float64"][k]
+                                for k in ("loss_rel_err", "all_leaves_max_grad_rel_l2")}}
     return out
 
 
@@ -2892,6 +3373,11 @@ def main():
                           "epistemic_finalize", "quant_epilogue")}
     emit("ptxas", **ptxas)
 
+    if sys.argv[1:] == ["--train"]:  # the training phase alone: no result line
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            emit("main_path_train", card=card, **main_path_train(tmp, dev, card))
+        return 0
+
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)  # > 50 MB L2
     kernels = [check_epistemic(dev, flush), check_nms(dev), check_stem(dev, flush),
                check_res_block(dev, flush), check_downsample(dev, flush),
@@ -2935,6 +3421,9 @@ def main():
         emit("main_path_dp", **dp)
         sp = main_path_sp(tmp, dev, card, b_runner, b_runner32)
         emit("main_path_sp", **sp)
+        del b_runner, b_runner32
+        train = main_path_train(tmp, dev, card)
+        emit("main_path_train", card=card, **train)
 
     # launches: each kernel's count from its own path's run — the epistemic
     # bf16 main path; for box_decode the batched aleatoric bf16 run; for the
@@ -2946,7 +3435,7 @@ def main():
         k["launches"] = path.get(k["name"], launches)[k["name"]]
     emit("summary", card=card, ptxas=ptxas, smoke_wall_s=time.time() - t_start,
          **summarize(summary, timings, split, mc_summary, mc2, b_summary, b_timings, gemm,
-                     int8, dp, sp))
+                     int8, dp, sp, train))
     emit("done", seconds=time.time() - t_start)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -107,10 +107,61 @@ def test_conv_block_matches_jax(rng, drop):
 
 
 def test_conv_block_training_mode_is_refused(rng):
+    """The in-place inference block refuses batch statistics and names the
+    training block."""
     p = {"w": torch.zeros(4, 3, 1, 1), "gamma": torch.ones(4), "beta": torch.zeros(4)}
     s = {"mean": torch.zeros(4), "var": torch.ones(4)}
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="conv_block_train"):
         tc.conv_block(p, s, torch.zeros(1, 2, 2, 3), training=True)
+
+
+@pytest.mark.parametrize("drop,stride", [(False, 1), (True, 1), (True, 2)])
+def test_conv_block_train_matches_jax(rng, drop, stride):
+    """Batch-statistics BN: the output, the new moving statistics (biased
+    variance, momentum 0.99) and, through autograd, the gradients of the
+    kernel, gamma, beta and the input against ``jax.grad``; dropout with
+    one key over the whole batch (JAX's training dropout with its
+    ``bits(key)``)."""
+    import jax
+
+    cin, cout = 6, 8
+    x = rng.standard_normal((2, 6, 8, cin)).astype(np.float32)
+    p = {"w": rng.standard_normal((3, 3, cin, cout)).astype(np.float32),
+         "gamma": rng.uniform(0.5, 1.5, cout).astype(np.float32),
+         "beta": rng.standard_normal(cout).astype(np.float32)}
+    s = {"mean": rng.standard_normal(cout).astype(np.float32),
+         "var": rng.uniform(0.5, 1.5, cout).astype(np.float32)}
+    gy = rng.standard_normal((2, 6 // stride, 8 // stride, cout)).astype(np.float32)
+    jkey = jax.random.PRNGKey(9)
+    kw = dict(drop_rate=0.1, rng=jkey) if drop else {}
+
+    def jloss(pj, xj):
+        y, ns = jc.conv_block(pj, {k: jnp.asarray(v) for k, v in s.items()}, xj,
+                              stride=stride, training=True, **kw)
+        return jnp.sum(y * jnp.asarray(gy)), (y, ns)
+
+    (jgp, jgx), (want, want_stats) = jax.grad(jloss, argnums=(0, 1), has_aux=True)(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x))
+    tp_ = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
+    tp_["w"] = _hwio_to_oihw(p["w"]).requires_grad_()
+    tx = torch.from_numpy(x).requires_grad_()
+    key = int(jax.random.bits(jkey, (), jnp.uint32))
+    got, got_stats = tc.conv_block_train(
+        tp_, {k: torch.from_numpy(v) for k, v in s.items()}, tx, stride=stride,
+        **(dict(drop_rate=0.1, drop_key=key) if drop else {}))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    for k in ("mean", "var"):
+        assert not got_stats[k].requires_grad
+        np.testing.assert_allclose(got_stats[k].numpy(), np.asarray(want_stats[k]), rtol=RTOL,
+                                   atol=1e-7)
+    # gradients: float32 sums over the batch and the BN reductions, rtol/atol 1e-4
+    gw, gg, gb, gx = torch.autograd.grad((got * torch.from_numpy(gy)).sum(),
+                                         (tp_["w"], tp_["gamma"], tp_["beta"], tx))
+    np.testing.assert_allclose(gw.numpy(), np.asarray(jgp["w"]).transpose(3, 2, 0, 1),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(gg.numpy(), np.asarray(jgp["gamma"]), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(gb.numpy(), np.asarray(jgp["beta"]), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(gx.numpy(), np.asarray(jgx), rtol=1e-4, atol=1e-4)
 
 
 def test_detection_conv_cf_layout(rng):

@@ -56,7 +56,12 @@ def test_every_module_is_listed():
                    "bayesian_yolov3_torch.parallel.mesh",
                    "bayesian_yolov3_torch.parallel.epistemic",
                    "bayesian_yolov3_torch.ops.quant", "bayesian_yolov3_torch.ops.cuda_quant",
-                   "bayesian_yolov3_torch.models.quant"):
+                   "bayesian_yolov3_torch.models.quant", "bayesian_yolov3_torch.ops.loss",
+                   "bayesian_yolov3_torch.data.encode", "bayesian_yolov3_torch.data.augment",
+                   "bayesian_yolov3_torch.utils.profiling", "bayesian_yolov3_torch.train.loop",
+                   "bayesian_yolov3_torch.cli.pretraining",
+                   "bayesian_yolov3_torch.cli.uncertainty_training",
+                   "bayesian_yolov3_torch.cli.yolov3_training"):
         assert needed in MODULES
 
 

@@ -75,6 +75,32 @@ def test_darknet53_matches_jax(weights, img, fast_stem):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
 
 
+def test_darknet53_batch_statistics_match_jax(weights, img):
+    """An unfrozen backbone in training: every block with batch statistics
+    through the plain convolutions; the three outputs and the 52 blocks'
+    advanced moving statistics against the JAX package's.  Outputs at rtol
+    1e-4 / atol 1e-3: each of 52 blocks normalises by statistics of its own
+    batch, so float32 rounding carries further than through moving
+    statistics (TOL); statistics at rtol 1e-5, atol 1e-6 for means near 0."""
+    _, _, jparams, jstats, tparams, tstats = weights
+    x = np.concatenate([img, img[:, ::-1]])  # two images: statistics over the batch
+    *want, want_stats = jax.jit(lambda p, s, x: jdark.darknet53(p, s, x, training=True))(
+        jparams["backbone"], jstats["backbone"], jnp.asarray(x))
+    with torch.no_grad():
+        *got, got_stats = tdark.darknet53(tparams["backbone"], tstats["backbone"],
+                                          torch.from_numpy(x.copy()), training=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-3)
+    assert set(got_stats) == set(want_stats) and len(got_stats) == 52
+    for name, blk in got_stats.items():
+        for k, v in blk.items():
+            np.testing.assert_allclose(v.numpy(), np.asarray(want_stats[name][k]), rtol=1e-5,
+                                       atol=1e-6, err_msg=f"{name}/{k}")
+    with pytest.raises(ValueError, match="plain backbone"):
+        tdark.darknet53(tparams["backbone"], tstats["backbone"], torch.from_numpy(x.copy()),
+                        training=True, fused_early=True)
+
+
 def test_darknet_weight_file_round_trip(weights, tmp_path):
     tparams, tstats = weights[4]["backbone"], weights[5]["backbone"]
     blob = tdark.export_darknet53_weights(tparams, tstats)
