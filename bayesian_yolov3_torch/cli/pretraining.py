@@ -11,13 +11,20 @@ before ``uncertainty_training``:
 Runs on the CUDA device unless ``--device cpu`` is given; bf16 by default
 (the frozen backbone's convs 0-25 through the fused conv kernels), ``--set
 compute_dtype=float32`` for true float32.  ``darknet53_weights`` is loaded
-after the init where the file exists.  ``training=False`` (the qualitative
-eval) is not ported yet.
+after the init where the file exists.
+
+Data-parallel over N cards, one process a card (the batch split evenly,
+the BN batch statistics and the gradients synchronised):
+
+    torchrun --nproc-per-node N -m bayesian_yolov3_torch.cli.pretraining \\
+        --set mesh_shape='{"data": N}' ...
+
+``--set training=false`` runs the qualitative eval instead
+(``infer/qualitative.py``): detections drawn on the first val images, one
+PNG a copy, under ``./qualitative``.
 """
 
-from ..train import Trainer
-from ..utils import add_file_logging, setup_logging
-from ._common import parse_cli
+from ._common import train_main
 
 DEFAULTS = {
     "model": "aleatoric",
@@ -57,14 +64,7 @@ DEFAULTS = {
 
 
 def main(argv=None):
-    setup_logging()
-    config, device = parse_cli(DEFAULTS, argv)
-    add_file_logging(config, override_existing=True)
-    if not config.training:
-        raise NotImplementedError(
-            "training=False runs the qualitative eval, which belongs to the tools "
-            "slice (infer/qualitative.py) and is not ported yet")
-    return Trainer(config, device=device).run()
+    return train_main(DEFAULTS, argv)
 
 
 if __name__ == "__main__":

@@ -8,13 +8,20 @@ variants share the aleatoric head structure, so every variable restores):
     python -m bayesian_yolov3_torch.cli.uncertainty_training --set run_id=... \\
         --set train.file_pattern=... --set val.file_pattern=...
 
-Runs on the CUDA device unless ``--device cpu`` is given.  ``training=False``
-(the qualitative eval) is not ported yet.
+Runs on the CUDA device unless ``--device cpu`` is given.
+
+Data-parallel over N cards, one process a card (the batch split evenly,
+the BN batch statistics and the gradients synchronised):
+
+    torchrun --nproc-per-node N -m bayesian_yolov3_torch.cli.uncertainty_training \\
+        --set mesh_shape='{"data": N}' ...
+
+``--set training=false`` runs the qualitative eval instead
+(``infer/qualitative.py``): detections drawn on the first val images, one
+PNG a copy, under ``./qualitative``.
 """
 
-from ..train import Trainer
-from ..utils import add_file_logging, setup_logging
-from ._common import parse_cli
+from ._common import train_main
 
 DEFAULTS = {
     "model": "bayesian",
@@ -55,14 +62,7 @@ DEFAULTS = {
 
 
 def main(argv=None):
-    setup_logging()
-    config, device = parse_cli(DEFAULTS, argv)
-    add_file_logging(config, override_existing=True)
-    if not config.training:
-        raise NotImplementedError(
-            "training=False runs the qualitative eval, which belongs to the tools "
-            "slice (infer/qualitative.py) and is not ported yet")
-    return Trainer(config, device=device).run()
+    return train_main(DEFAULTS, argv)
 
 
 if __name__ == "__main__":

@@ -230,6 +230,7 @@ def darknet53(
     fused_early=None,
     packed_hw=None,
     band=None,
+    group=None,
 ):
     """Run the backbone.  Returns (out_s32, skip_s16, skip_s8, new_stats).
 
@@ -237,7 +238,9 @@ def darknet53(
     training) runs every block with batch statistics through the plain
     convolutions (``conv_block_train``) and returns the advanced moving
     statistics; False (inference, or a frozen backbone in training) uses
-    the moving statistics and returns ``stats`` unchanged.
+    the moving statistics and returns ``stats`` unchanged.  ``group`` (with
+    ``training``): ``x`` is a data-parallel rank's share of the batch and the
+    batch statistics are the group's (``ops.common.conv_block_train``).
 
     ``fast_stem`` (inference only): the first two convs run in the 2x2
     space-to-depth domain (see ``_stem_kernels``) — numerically the same
@@ -280,7 +283,7 @@ def darknet53(
         name = _conv_name(i)
         if training:
             y, new_stats[name] = conv_block_train(params[name], stats[name], h, stride=stride,
-                                                  compute_dtype=compute_dtype)
+                                                  compute_dtype=compute_dtype, group=group)
             return y
         return conv_block(params[name], stats[name], h, stride=stride,
                           compute_dtype=compute_dtype, band=band)

@@ -195,18 +195,21 @@ def _heads(
 
 
 def _heads_train(params: Dict, stats: Dict, dn_out, skip16, skip8, *,
-                 site_keys: Optional[np.ndarray], compute_dtype):
+                 site_keys: Optional[np.ndarray], compute_dtype, group=None):
     """The head section in training mode: batch-statistics BN in every
     block, dropout with one key per site for the whole batch (row 0 of a
-    (1, 15) table; None: no dropout).  Returns ((raw1, raw2, raw3),
-    new_stats of the head blocks)."""
+    (1, 15) table; None: no dropout).  ``group``: the inputs are a
+    data-parallel rank's share of the batch; statistics and masks are the
+    whole batch's (``ops.common.conv_block_train``).  Returns ((raw1, raw2,
+    raw3), new_stats of the head blocks)."""
     new_stats = {}
 
     def block(name, x, keys):
         y, new_stats[name] = conv_block_train(
             params[name], stats[name], x,
             drop_rate=DROP_PROB if keys is not None else None,
-            drop_key=None if keys is None else keys[0], compute_dtype=compute_dtype)
+            drop_key=None if keys is None else keys[0], compute_dtype=compute_dtype,
+            group=group)
         return y
 
     feats = _walk_heads(dn_out, skip16, skip8, site_keys, block)
@@ -228,6 +231,7 @@ def forward(
     compute_dtype=torch.float32,
     fused_early=None,
     packed_hw=None,
+    group=None,
 ):
     """Single forward pass.  Returns (raw1, raw2, raw3): raw_i is the f32
     detection-conv output at scale i, (N, H/stride, W/stride,
@@ -246,6 +250,11 @@ def forward(
     autograd — on the card in bf16 through the fused conv kernels — so its
     output is a constant and its statistics come back unchanged; False
     trains it with batch statistics through the plain convolutions.
+    ``group`` (training only; ``parallel.mesh.Group`` of the ``data`` axis):
+    ``imgs`` is the rank's share of the global batch, and every
+    batch-statistics block — the heads, and the backbone when it trains —
+    takes the global batch's statistics and dropout masks; the frozen
+    backbone needs no synchronisation.
     """
     if training:
         if packed_hw is not None:
@@ -254,11 +263,12 @@ def forward(
             out32, skip16, skip8, bstats = darknet.darknet53(
                 params["backbone"], stats["backbone"], imgs, training=not freeze_backbone,
                 compute_dtype=compute_dtype, fused_early=fused_early,
+                group=None if freeze_backbone else group,
             )
         raws, new_stats = _heads_train(
             params, stats, out32, skip16, skip8,
             site_keys=_batch_keys(spec, rng, standard_test_dropout),
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, group=group)
         return raws, {**new_stats, "backbone": bstats}
     out32, skip16, skip8, _ = darknet.darknet53(
         params["backbone"], stats["backbone"], imgs,
@@ -433,14 +443,14 @@ class YoloV3:
         return init_yolov3(gen, self.spec, device)
 
     def forward(self, params, stats, imgs, *, training=False, rng=None,
-                standard_test_dropout=False, packed_hw=None, fused_early=None):
+                standard_test_dropout=False, packed_hw=None, fused_early=None, group=None):
         """``training=True`` freezes the backbone as the model was
         configured (``freeze_darknet53``) and returns (raws, new_stats)."""
         return forward(params, stats, imgs, spec=self.spec, training=training,
                        freeze_backbone=self.freeze_darknet53, rng=rng,
                        standard_test_dropout=standard_test_dropout,
                        compute_dtype=self._dtype, fused_early=fused_early,
-                       packed_hw=packed_hw)
+                       packed_hw=packed_hw, group=group)
 
     def mc_forward(self, params, stats, img, *, T, rng=None, fixed_masks=None):
         return mc_forward(params, stats, img, spec=self.spec, T=T, rng=rng,

@@ -126,6 +126,9 @@ def dropout(x: torch.Tensor, rate: float,
     (an sp rank's band, ``parallel.spatial``); element (n, r, j, k) then
     takes the index of its place in the whole map, ((n*H + r0 + r)*w +
     j)*c + k, so a band draws exactly its rows of the whole map's mask.
+    ``origin=(r0, H, n0)``: the batch also starts at image n0 of a larger
+    batch (a rank's share of a data-parallel batch), and element (n, r, j,
+    k) takes (((n0 + n)*H + r0 + r)*w + j)*c + k.
     """
     keys = [keys] if isinstance(keys, int) else [int(k) for k in keys]
     s = len(keys)
@@ -138,7 +141,8 @@ def dropout(x: torch.Tensor, rate: float,
         idx = torch.arange(math.prod(per_sample), dtype=torch.int64,
                            device=x.device).reshape(per_sample)
     else:
-        idx = _band_index(per_sample, *origin, x.device)
+        r0, height, *n0 = origin
+        idx = _band_index(per_sample, r0, height, x.device, *n0)
     for i, key in enumerate(keys):
         xs = x[i * nb:(i + 1) * nb]
         mask = hash_keep(idx, key, thresh)
@@ -154,14 +158,16 @@ def _keep(rate: float, dtype):
     return min(round(keep * 65536.0), 65535), torch.tensor(keep, dtype=dtype).item()
 
 
-def _band_index(shape, r0: int, height: int, device) -> torch.Tensor:
-    """int64 flat NHWC indices of rows [r0, r0+h) of an (n, height, w, c)
-    map, shaped (n, h, w, c)."""
+def _band_index(shape, r0: int, height: int, device, n0: int = 0) -> torch.Tensor:
+    """int64 flat NHWC indices of rows [r0, r0+h) of images [n0, n0+n) of an
+    (N, height, w, c) map, shaped (n, h, w, c)."""
     n, h, w, c = shape
     if not 0 <= r0 <= height - h:
         raise ValueError(f"rows [{r0}, {r0 + h}) outside a map {height} rows high")
+    if n0 < 0:
+        raise ValueError(f"image offset {n0} < 0")
     ar = functools.partial(torch.arange, dtype=torch.int64, device=device)
-    rows = ar(n)[:, None] * height + r0 + ar(h)  # (n, h): the rows' global row index
+    rows = (n0 + ar(n))[:, None] * height + r0 + ar(h)  # (n, h): the rows' global row index
     return (rows[..., None] * w + ar(w))[..., None] * c + ar(c)
 
 
@@ -207,7 +213,7 @@ def conv_block(params: Dict, stats: Dict, x: torch.Tensor, *, stride: int = 1,
 
 def conv_block_train(params: Dict, stats: Dict, x: torch.Tensor, *, stride: int = 1,
                      drop_rate: Optional[float] = None, drop_key=None,
-                     compute_dtype=torch.float32):
+                     compute_dtype=torch.float32, group=None):
     """conv -> [dropout] -> batch-statistics BN -> LeakyReLU(0.1), NHWC,
     out of place.  Returns ``(y, new_stats)``.
 
@@ -219,15 +225,34 @@ def conv_block_train(params: Dict, stats: Dict, x: torch.Tensor, *, stride: int 
     index of the whole batch, as the JAX package's training dropout does).
     Dropout works in place on the conv's output, which the conv's backward
     does not save; BN and the activation are out of place.
+
+    The statistics take two passes: the sums and the count give the mean,
+    the sum of squared deviations from it over the count the biased
+    variance.  ``group`` (``parallel.mesh.Group`` of the ``data`` axis;
+    None: one device): ``x`` is the rank's share of a global batch split
+    evenly over the group, images [rank*n, (rank+1)*n).  Both passes' sums
+    are then all-reduced through ``Group.all_reduce_autograd``, whose
+    backward all-reduces the gradient, so the statistics are the global
+    batch's; the dropout mask is the rows of the global batch's
+    (``dropout(origin=(0, h, rank*n))``).
     """
     y = conv2d(x.to(compute_dtype), params["w"].to(compute_dtype), stride=stride)
     if drop_rate is not None and drop_rate > 0.0:
         if drop_key is None:
             raise ValueError("dropout requires a key")
-        y = dropout(y, drop_rate, drop_key)
+        origin = None if group is None else (0, y.shape[1], group.rank * y.shape[0])
+        y = dropout(y, drop_rate, drop_key, origin=origin)
     y = y.float()
-    mean = y.mean(dim=(0, 1, 2))
-    var = (y - mean).square().mean(dim=(0, 1, 2))
+    c = y.shape[-1]
+    count = y.new_full((1,), float(math.prod(y.shape[:3])))
+    sums = torch.cat([y.sum(dim=(0, 1, 2)), count])
+    if group is not None:
+        sums = group.all_reduce_autograd(sums)
+    mean = sums[:c] / sums[c]
+    sq = (y - mean).square().sum(dim=(0, 1, 2))
+    if group is not None:
+        sq = group.all_reduce_autograd(sq)
+    var = sq / sums[c]
     with torch.no_grad():
         new_stats = {"mean": stats["mean"] * BN_MOMENTUM + mean * (1.0 - BN_MOMENTUM),
                      "var": stats["var"] * BN_MOMENTUM + var * (1.0 - BN_MOMENTUM)}

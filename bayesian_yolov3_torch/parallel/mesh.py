@@ -10,7 +10,11 @@ collectives of a process group:
 * axis ``dp`` — the image batch of batched inference, split over the ranks
   (``parallel/batch.py``);
 * axis ``sp`` — the image rows, split into one band per rank, with a
-  one-row halo exchange around every 3x3 conv (``parallel/spatial.py``).
+  one-row halo exchange around every 3x3 conv (``parallel/spatial.py``);
+* axis ``data`` — the batch of data-parallel training, split over the
+  ranks (``train/loop.py``): the BN batch statistics summed over the group
+  through ``all_reduce_autograd``, the gradients averaged through
+  ``Group.all_reduce_mean_packed``.
 
 One axis spans the whole world (the default process group).  Two axes,
 ``{'sp': a, 'mc': b}``, lay the world out as the JAX package's
@@ -34,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -134,11 +138,54 @@ class Group:
                       else None)
         return prev_last, next_first
 
+    def all_reduce_autograd(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the group's ranks, out of place, with a gradient:
+        the backward all-reduces the incoming gradient (``_AllReduceSum``)."""
+        return _AllReduceSum.apply(t, self.pg)
+
+    def all_reduce_mean_packed(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The mean over the group's ranks of each of ``tensors``, through
+        ONE all-reduce of one float32 buffer that holds them all flattened
+        (one call where one a tensor would pay the collective's latency per
+        leaf); the results in the tensors' shapes and dtypes."""
+        flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.pg)
+        flat.div_(self.size)
+        out, at = [], 0
+        for t in tensors:
+            out.append(flat[at:at + t.numel()].view(t.shape).to(t.dtype))
+            at += t.numel()
+        return out
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.pg)
+
     def all_true(self, flag: bool, device) -> bool:
         """True iff ``flag`` holds on every rank of the group."""
         t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=device)
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.pg)
         return int(t.item()) == self.size
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """``y = sum over the ranks of x`` with ``dx = sum over the ranks of
+    dy``: each rank's loss depends on every rank's ``x`` through ``y``, and
+    the sum of the ranks' gradients is then the gradient of the summed loss.
+    Written here so that it does not depend on the torch version's
+    ``torch.distributed.nn``."""
+
+    @staticmethod
+    def forward(ctx, x, pg):
+        ctx.pg = pg
+        y = x.clone()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=pg)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx = dy.clone()
+        dist.all_reduce(dx, op=dist.ReduceOp.SUM, group=ctx.pg)
+        return dx, None
 
 
 def world_group() -> Group:
@@ -147,10 +194,10 @@ def world_group() -> Group:
 
 
 def make_groups(shape: Dict[str, int]) -> Dict[str, Group]:
-    """This rank's group on each axis of ``shape`` (``{'mc': N}``, ``{'sp':
-    a, 'mc': b}``, ...), whose sizes multiply to the world size of the
-    initialised default process group (the JAX package's ``make_mesh``
-    asserts the same), else ``RuntimeError``.  One axis spans the whole
+    """This rank's group on each axis of ``shape`` (``{'mc': N}``,
+    ``{'data': N}``, ``{'sp': a, 'mc': b}``, ...), whose sizes multiply to
+    the world size of the initialised default process group (the JAX
+    package's ``make_mesh`` asserts the same), else ``RuntimeError``.  One axis spans the whole
     world.  Several lay the ranks out row-major over the axes in dict
     order; every rank builds every subgroup, in one fixed order (axis by
     axis, lines in rank order), as ``dist.new_group`` requires."""

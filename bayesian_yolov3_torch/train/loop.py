@@ -21,8 +21,28 @@ streams — the PyTorch counterpart of the JAX package's ``train/loop.py``.
   an uninterrupted run draws, and the host enqueues batch i+1's
   preprocessing right after step i.
 
-One card: ``mesh_shape={'data': N}`` with N > 1 (data-parallel training,
-the BN batch statistics synchronised over the ranks) is the next slice.
+Data-parallel training, one process a card (the JAX package's ``data``
+mesh axis): ``mesh_shape={'data': N}`` with N > 1 — or an empty
+``mesh_shape`` in an initialised process group of N > 1 ranks — splits the
+global batch of ``batch_size`` evenly over the ranks of the group
+(``batch_size % N`` raises ``ValueError``, a group of another size
+``RuntimeError``):
+
+* every rank reads its own stripe of the shard files
+  (``TrainLoader(host_index=rank, host_count=N)``) and draws the whole
+  global batch's preprocessing draws, applying rows [rank*b, (rank+1)*b) of
+  them, so the ranks' preprocessing is one card's, bit for bit;
+* the BN batch statistics of every training-mode block and the dropout
+  masks are the global batch's (``ops.common.conv_block_train(group=)``);
+* the loss stays ``sum / local batch``; the gradients and the six metrics
+  are averaged over the ranks through ONE all-reduce of one packed buffer a
+  step (``Group.all_reduce_mean_packed``), so the step is JAX's ``sum /
+  global batch`` step, every rank applies the same Adam step (the state
+  stays replicated, the same bytes on every rank) and every rank's NaN
+  guard fires at the same step;
+* rank 0 alone writes the config snapshot, the metrics, TensorBoard, the
+  step timing and the checkpoints; the other ranks wait for a save at a
+  barrier; every rank resumes from the same step.
 """
 
 from __future__ import annotations
@@ -32,10 +52,11 @@ import json
 import logging
 import os
 import time
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config
 from ..data import augment as aug
@@ -43,6 +64,7 @@ from ..data import encode, pipeline
 from ..models.yolov3 import N_DROP_SITES, YoloV3
 from ..ops import decode
 from ..ops import loss as loss_ops
+from ..parallel.mesh import Group, make_groups, world_group
 from ..utils.profiling import StepTimer
 from .checkpoints import CheckpointStore
 
@@ -134,12 +156,15 @@ class Adam:
         return {**opt, "count": count}
 
 
-def make_preprocess(config: Config, tables: encode.PriorTables, split: str, seed: int):
+def make_preprocess(config: Config, tables: encode.PriorTables, split: str, seed: int,
+                    group: Optional[Group] = None):
     """Device-side per-batch preprocessing: [0,1) scale -> crop -> augment
     (train only) -> GT encode.  ``preprocess(batch, step)`` takes a batch of
     tensors on the device (``image`` uint8 NHWC, ``bbox``, ``label``,
     ``valid``) and returns (imgs, [gt1, gt2, gt3]); its draws come from
-    ``step_generator(seed, step)``."""
+    ``step_generator(seed, step)``.  ``group`` (the ``data`` axis): the batch
+    is the rank's share of the global one; the draws of the whole global
+    batch are made and the rank's rows of them applied."""
     cropper = (aug.ImageCropper(tuple(config.full_img_size), tuple(config.crop_img_size))
                if config.crop else None)
     augment_on = split == "train"
@@ -148,7 +173,9 @@ def make_preprocess(config: Config, tables: encode.PriorTables, split: str, seed
     def preprocess(batch, step: int):
         images, bboxes, labels, valids = (batch[k] for k in ("image", "bbox", "label", "valid"))
         n = images.shape[0]
-        draws = aug.draw_batch(step_generator(seed, step), n, cropper, augment_on)
+        size, rank = (1, 0) if group is None else (group.size, group.rank)
+        draws = aug.draw_batch(step_generator(seed, step), n * size, cropper,
+                               augment_on)[rank * n:(rank + 1) * n]
         imgs, boxes, labs, vals = [], [], [], []
         for i, d in enumerate(draws):
             img = images[i].float() / 255.0
@@ -173,7 +200,8 @@ def make_preprocess(config: Config, tables: encode.PriorTables, split: str, seed
 
 
 def make_train_step(model: YoloV3, config: Config, tables: encode.PriorTables,
-                    seed: int = 0, fused_early=None) -> Tuple[Callable, Callable, Adam]:
+                    seed: int = 0, fused_early=None,
+                    group: Optional[Group] = None) -> Tuple[Callable, Callable, Adam]:
     """Build (train_step, eval_step, optimizer).
 
     ``train_step(state, batch)`` = ``apply(state, *preprocess(batch,
@@ -185,30 +213,42 @@ def make_train_step(model: YoloV3, config: Config, tables: encode.PriorTables,
     ``eval_step(state, batch)`` returns the val metrics: the random crop, no
     augmentation, training-mode forward, no update.  ``fused_early``: as
     ``models.darknet.darknet53`` takes it (None: the fused conv kernels for a
-    frozen bf16 backbone on the card).
+    frozen bf16 backbone on the card).  ``group`` (the ``data`` axis): the
+    batches are the rank's shares; the statistics are synchronised, and the
+    gradients and metrics averaged over the ranks (see the module's
+    docstring).
     """
     optimizer = Adam(config.lr)
-    preprocess_train = make_preprocess(config, tables, "train", seed)
-    preprocess_val = make_preprocess(config, tables, "val", seed)
+    preprocess_train = make_preprocess(config, tables, "train", seed, group)
+    preprocess_val = make_preprocess(config, tables, "val", seed, group)
     aleatoric = bool(config.aleatoric_loss) and model.spec.aleatoric_head
 
     def loss_fn(trainable, frozen, stats, imgs, gts, keys):
         params = merge_params(trainable, frozen)
         raws, new_stats = model.forward(params, stats, imgs, training=True, rng=keys,
-                                        fused_early=fused_early)
+                                        fused_early=fused_early, group=group)
         dets = [decode.split_detection(raw, model.spec) for raw in raws]
         total, metrics = loss_ops.total_loss(dets, gts, params, aleatoric)
         return total, (metrics, new_stats)
+
+    def group_mean(grads, metrics):
+        """(grads, metrics) averaged over the group, in one all-reduce."""
+        if group is None:
+            return grads, metrics
+        names = list(metrics)
+        out = group.all_reduce_mean_packed([*grads, *(metrics[k] for k in names)])
+        return out[:len(grads)], dict(zip(names, out[len(grads):]))
 
     def apply_step(state, imgs, gts):
         keys = dropout_keys(seed, state["step"])
         total, (metrics, new_stats) = loss_fn(state["params"], state["frozen"], state["stats"],
                                               imgs, gts, keys)
         grads = torch.autograd.grad(total, leaves(state["params"]))
+        grads, metrics = group_mean(grads, {k: v.detach() for k, v in metrics.items()})
         state["opt"] = optimizer.update(grads, state["opt"], state["params"])
         state["stats"] = new_stats
         state["step"] += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     def train_step(state, batch):
         return apply_step(state, *preprocess_train(batch, state["step"]))
@@ -218,7 +258,7 @@ def make_train_step(model: YoloV3, config: Config, tables: encode.PriorTables,
         imgs, gts = preprocess_val(batch, state["step"])
         _, (metrics, _) = loss_fn(state["params"], state["frozen"], state["stats"], imgs, gts,
                                   dropout_keys(seed, state["step"]))
-        return metrics
+        return group_mean([], metrics)[1]
 
     train_step.preprocess = preprocess_train
     train_step.apply = apply_step
@@ -263,26 +303,42 @@ class _HostMetrics:
         return dict(zip(METRIC_KEYS, self.host.tolist()))
 
 
+def data_group(config: Config) -> Optional[Group]:
+    """The ``data`` axis of a training run, or None for one device:
+    ``mesh_shape={'data': N}`` with N > 1 needs an initialised process group
+    of N ranks (``RuntimeError`` otherwise); an empty ``mesh_shape`` in an
+    initialised group of N > 1 ranks trains over the whole world (the JAX
+    package's default mesh).  ``batch_size % N`` raises ``ValueError``."""
+    shape = config.mesh_shape or {}
+    n = shape.get("data", 0)
+    if n <= 1 and not shape and dist.is_initialized():
+        n = dist.get_world_size()
+    if n <= 1:
+        return None
+    if config.batch_size % n:
+        raise ValueError(f"global batch {config.batch_size} not divisible by the {n} ranks "
+                         "of the data axis")
+    return make_groups({"data": n})["data"] if shape else world_group()
+
+
 class Trainer:
     """End-to-end training on one device (``cuda`` unless the caller
-    passes another)."""
+    passes another), or on one rank of the ``data`` axis (``data_group``):
+    one process a card, each on its own device."""
 
     def __init__(self, config: Config, seed: int = 0, device="cuda"):
-        if config.mesh_shape.get("data", 1) > 1:
-            raise NotImplementedError(
-                f"mesh_shape={config.mesh_shape}: dp training (a 'data' axis, the BN batch "
-                "statistics synchronised over the ranks) is not ported yet; the port trains "
-                "on one device")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer computes on a CUDA device and none is available; "
                                "pass device='cpu' to run on the CPU knowingly")
         self.config = config
         self.seed = seed
+        self.group = data_group(config)
+        self.rank = 0 if self.group is None else self.group.rank
         self.model = YoloV3.from_config(config)
         self.tables = encode.build_prior_tables(self.model.blueprint)
         self.train_step_fn, self.eval_step_fn, self.optimizer = make_train_step(
-            self.model, config, self.tables, seed)
+            self.model, config, self.tables, seed, group=self.group)
         self.store = CheckpointStore(config.checkpoint_path, config.run_id,
                                      config.ckp_max_to_keep)
         self.metrics_path = os.path.join(self.store.dir, "metrics.jsonl")
@@ -303,9 +359,14 @@ class Trainer:
             p.requires_grad_(True)
         return restored, step
 
-    def save(self, state: Dict[str, Any], step: int):
-        self.store.save(step, state)
-        log.info("checkpoint saved at step %d", step)
+    def save(self, state: Dict[str, Any], step: int, barrier: bool = True):
+        """Checkpoint ``step`` — on rank 0 alone; with ``barrier`` the other
+        ranks of the data axis wait until it is written."""
+        if self.rank == 0:
+            self.store.save(step, state)
+            log.info("checkpoint saved at step %d", step)
+        if barrier and self.group is not None:
+            self.group.barrier()
 
     def _place_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Start the host -> device copy of a batch (pinned, asynchronous on
@@ -322,18 +383,24 @@ class Trainer:
 
     def run(self) -> Dict[str, Any]:
         cfg = self.config
-        self.store.save_config_snapshot(cfg)
+        main = self.rank == 0
+        if main:
+            self.store.save_config_snapshot(cfg)
         state = self.fresh_state()
         step = 0
         if cfg.resume_training:
             state, step = self.restore(state, cfg.resume_checkpoint)
             log.info("resumed from step %d", step)
 
-        train_loader = pipeline.TrainLoader(cfg, "train", seed=1)
-        val_loader = pipeline.TrainLoader(cfg, "val", seed=2)
+        # each rank reads its own stripe of the shards: its share of a batch
+        stripe = {} if self.group is None else {"host_index": self.rank,
+                                                "host_count": self.group.size}
+        train_loader = pipeline.TrainLoader(cfg, "train", seed=1, **stripe)
+        val_loader = pipeline.TrainLoader(cfg, "val", seed=2, **stripe)
         train_it, val_it = train_loader.batches(), val_loader.batches()
-        mfile = open(self.metrics_path, "a")
-        self._tb_writers = self._make_tb_writers()
+        # every rank reads the (all-reduced) metrics; rank 0 alone writes them
+        mfile = open(self.metrics_path if main else os.devnull, "a")
+        self._tb_writers = self._make_tb_writers() if main else None
         pre, apply = self.train_step_fn.preprocess, self.train_step_fn.apply
         timer = StepTimer(window=100)
         # The metrics are read one step behind the dispatch: the NaN guard
@@ -376,17 +443,18 @@ class Trainer:
                                       None)
                 if step % cfg.checkpoint_interval == 0:
                     self.save(state, step)
-                    timer.write(os.path.join(self.store.dir, "step_timing.jsonl"))
+                    if main:
+                        timer.write(os.path.join(self.store.dir, "step_timing.jsonl"))
             while inflight:
                 if drain_one():
                     break
         except KeyboardInterrupt:
             log.warning("interrupted at step %d — saving checkpoint", step)
-            self.save(state, step)
+            self.save(state, step, barrier=False)  # the other ranks may not come
             raise
         except Exception:
             log.exception("training error at step %d — best-effort save", step)
-            self.save(state, step)
+            self.save(state, step, barrier=False)
             raise
         finally:
             mfile.close()

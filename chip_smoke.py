@@ -5,6 +5,8 @@ NVIDIA Hopper GPU.  Run from the repository root, no arguments, one card:
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels   # build, ptxas and the kernel checks only
     python3 chip_smoke.py --train     # build and the training phase only
+    python3 chip_smoke.py --train-dp  # build and the dp training phase only
+    python3 chip_smoke.py --tools     # build and the tools phase only
 
 It imports only ``bayesian_yolov3_torch``, torch, numpy and the standard
 library; needs a CUDA device (exits non-zero without one) and ``nvcc``
@@ -114,6 +116,35 @@ main_path_train
             every leaf 1e-10); ms a step, img/s, preprocess / forward with
             loss / backward / Adam each alone, the host loader's time a
             batch, peak memory
+
+main_path_train_dp
+            data-parallel training, mesh_shape={'data': 2}, two spawned ranks
+            on the one card over gloo, the pretraining configuration (global
+            batch 8, 4 a rank): one step of the two ranks against one rank
+            on the same global batch, in float64 (loss rtol 1e-12, new BN
+            statistics rtol 1e-10, every trainable leaf's gradient relative
+            L2 1e-10) and in float32 (loss and statistics rtol 1e-5, the
+            gradients' median and 90th percentile gap within 2x those of one
+            rank's float32 step against its float64 step); bf16,
+            3 steps through Trainer.run(): launches a step and rank (stem 1,
+            res block 11, downsample 2), finite losses, the ranks' params,
+            Adam state and statistics bit-equal, rank 0 alone writing; ms a
+            step per rank, the packed gradient all-reduce (ms, MB), the BN
+            all-reduces (count, ms) of a step, peak memory
+main_path_tools
+            the tools, with neither PIL nor matplotlib nor tensorflow:
+            cli/vis_uncertainty.py on one 1024x1920 PNG (bayesian, T=30, bf16;
+            99 PNGs, 3 epistemic decode launches, the maps equal to the
+            columns of the runner's decoded rows, ms of the device part and
+            of the PNG writing); the qualitative eval through
+            cli/uncertainty_training.py and cli/yolov3_training.py with
+            training=false (crop, stacked copies; every PNG equal to the
+            drawing of predict's boxes under the same keys, launches a
+            predict call); cli/evaluate_detections.py on main_path's JSON;
+            data/citypersons.py on a tiny tree of two 1024x2048 frames; trace
+            and annotate around one training step (the annotation, the CUDA
+            kernel events, whether the kernels launched through ctypes
+            appear by name)
 
 Then the card line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
@@ -2863,20 +2894,22 @@ def train_frame(rng, hw):
     return img, boxes, rng.integers(1, C + 1, n)
 
 
-def write_train_records(path, rng, n, hw):
-    """n annotated frames as PNG in one tfrecord (the TF Object Detection
-    API fields the train loader parses)."""
+def write_train_records(path, rng, n, hw, shards=1):
+    """n annotated frames as PNG in ``shards`` tfrecords (the TF Object
+    Detection API fields the train loader parses)."""
     os.makedirs(path, exist_ok=True)
-    with tfrecord.TFRecordWriter(os.path.join(path, "train-00000-of-00001.tfrecord")) as wr:
-        for i in range(n):
-            img, boxes, labels = train_frame(rng, hw)
-            wr.write(proto.encode_example({
-                "image/encoded": [pipeline.encode_png(img, level=1)],
-                "image/filename": [f"train_{i:04d}.png".encode()],
-                "image/object/bbox/ymin": boxes[:, 0], "image/object/bbox/xmin": boxes[:, 1],
-                "image/object/bbox/ymax": boxes[:, 2], "image/object/bbox/xmax": boxes[:, 3],
-                "image/object/class/label": labels.astype(np.int64),
-            }))
+    for s in range(shards):
+        name = f"train-{s:05d}-of-{shards:05d}.tfrecord"
+        with tfrecord.TFRecordWriter(os.path.join(path, name)) as wr:
+            for i in range(s * n // shards, (s + 1) * n // shards):
+                img, boxes, labels = train_frame(rng, hw)
+                wr.write(proto.encode_example({
+                    "image/encoded": [pipeline.encode_png(img, level=1)],
+                    "image/filename": [f"train_{i:04d}.png".encode()],
+                    "image/object/bbox/ymin": boxes[:, 0], "image/object/bbox/xmin": boxes[:, 1],
+                    "image/object/bbox/ymax": boxes[:, 2], "image/object/bbox/xmax": boxes[:, 3],
+                    "image/object/class/label": labels.astype(np.int64),
+                }))
     return os.path.join(path, "train-*-of-*.tfrecord")
 
 
@@ -3255,6 +3288,566 @@ def train_timing(trainer, cfg, state, batch, host, keys):
     return out
 
 
+# --------------------------------------------------------------------------
+# dp training
+# --------------------------------------------------------------------------
+
+DP_TRAIN_RANKS, DP_TRAIN_STEPS = 2, 3
+# Two ranks against one rank on the same global batch, draws and keys.  In
+# float64, the dp arithmetic itself: loss rtol 1e-12, the new moving
+# statistics rtol 1e-10, every trainable leaf's gradient at relative L2
+# 1e-10 (the CPU test's float64 bounds, tests/test_torch_train_dp.py).  In
+# float32 the sums of the BN statistics and of the gradients run in another
+# order (two halves all-reduced) and cuDNN may take other algorithms for 4
+# images than for 8: the loss and the statistics at rtol 1e-5 (a statistic
+# also within 1e-7 absolute: a moving mean near 0 takes a batch mean whose
+# float32 sum over 138 240 positions cancels); the head leaves' gradients,
+# whose batch-statistics BN leaves small differences of large terms (a
+# 5.6e-3 relative L2 on head1_conv0/beta in the first chip run), with their
+# median and 90th percentile within DP_TRAIN_SPREAD_RATIO times those of a
+# control, one rank's own float32 step against its float64 step.
+DP_TRAIN_TOL = {"loss": 1e-5, "stats": 1e-5, "stats_atol": 1e-7}
+DP_TRAIN_F64_TOL = {"loss": 1e-12, "stats": 1e-10, "grad": 1e-10}
+DP_TRAIN_SPREAD_RATIO = 2.0
+
+
+def _state_digest(state):
+    """sha256 of every tensor of a training state (params, frozen, stats,
+    the Adam moments) and the Adam count."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for key in ("params", "frozen", "stats"):
+        for t in train_loop.leaves(state[key]):
+            h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    for key in ("mu", "nu"):
+        for t in train_loop.leaves(state["opt"][key]):
+            h.update(t.cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    h.update(str(state["opt"]["count"]).encode())
+    return h.hexdigest()
+
+
+def _global_batch(cfg):
+    """The first host batch of a one-host train loader: the same ``batch_size``
+    frames wherever it runs."""
+    loader = pipeline.TrainLoader(cfg, "train", seed=1)
+    try:
+        return next(loader.batches())
+    finally:
+        loader.close()
+
+
+def _one_step(trainer, host, dtype="float32"):
+    """One step of ``trainer`` on ``host`` (the rank's share of the batch),
+    from its fresh state: the float32 preprocessing, then the forward,
+    backward and Adam in ``dtype`` ("float64": the state and the images
+    cast, ``float64_casts``): the loss, the gradients Adam received
+    (averaged over the ranks), the heads' new statistics, all on the
+    host."""
+    seen = {}
+    update = trainer.optimizer.update
+    trainer.optimizer.update = lambda g, *a: (seen.setdefault("g", [t.cpu() for t in g]),
+                                              update(g, *a))[1]
+    state = trainer.fresh_state()
+    if dtype == "float64":
+        cast = lambda t: {k: cast(v) if isinstance(v, dict) else v.detach().double()  # noqa
+                          for k, v in t.items()}
+        params = cast(state["params"])
+        for p in train_loop.leaves(params):
+            p.requires_grad_(True)
+        state = {**state, "params": params, "frozen": cast(state["frozen"]),
+                 "stats": cast(state["stats"]), "opt": trainer.optimizer.init(params)}
+    step = trainer.train_step_fn
+    imgs, gts = step.preprocess(trainer._place_batch(host), state["step"])  # float32 draws
+    trainer.model.compute_dtype = dtype
+    try:
+        with float64_casts() if dtype == "float64" else contextlib.nullcontext():
+            state, metrics = step.apply(state, imgs.to(getattr(torch, dtype)), gts)
+    finally:
+        trainer.optimizer.update = update
+        trainer.model.compute_dtype = "float32"
+    names = [n for n, _ in _named_leaves(state["params"])]
+    return {"loss": float(metrics["total"]), "grads": dict(zip(names, seen["g"])),
+            "stats": {n: t.cpu() for n, t in _named_leaves(
+                {k: v for k, v in state["stats"].items() if k != "backbone"})}}
+
+
+def _steps_agree(name, got, want, tol):
+    """Loss, statistics and gradients of two steps: the worst of each, and
+    the loss and the statistics held at ``tol``."""
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    grad_rel = {k: _rel_l2(got["grads"][k], w) for k, w in want["grads"].items()}
+    stat_abs = {k: float((got["stats"][k] - w).abs().max()) for k, w in want["stats"].items()}
+    stat_rel = {k: float(((got["stats"][k] - w).abs() / w.abs().clamp_min(1e-30)).max())
+                for k, w in want["stats"].items()}
+    over = {k: float(((got["stats"][k] - w).abs() - tol["stats"] * w.abs()).max())
+            for k, w in want["stats"].items()}
+    worst_grad, worst_stat = max(grad_rel, key=grad_rel.get), max(stat_rel, key=stat_rel.get)
+    check(loss_rel <= tol["loss"], f"{name}: loss {got['loss']} vs {want['loss']}")
+    check(max(over.values()) <= tol.get("stats_atol", 0.0),
+          f"{name}: statistics beyond rtol {tol['stats']} + atol {tol.get('stats_atol', 0)}: "
+          f"{sorted(over.items(), key=lambda x: -x[1])[:3]}")
+    return {"loss": got["loss"], "loss_ref": want["loss"], "loss_rel_err": loss_rel,
+            "worst_grad_rel_l2": grad_rel[worst_grad], "worst_grad_leaf": worst_grad,
+            "median_grad_rel_l2": float(np.median(list(grad_rel.values()))),
+            "p90_grad_rel_l2": float(np.percentile(list(grad_rel.values()), 90)),
+            "worst_stat_rel_err": stat_rel[worst_stat], "worst_stat": worst_stat,
+            "worst_stat_abs_err": max(stat_abs.values())}
+
+
+@contextlib.contextmanager
+def counted_all_reduces():
+    """Every ``torch.distributed.all_reduce`` inside: (elements, host ms), timed
+    from a drained card to a drained card — the BN statistics' (forward and
+    backward) and the packed gradients'."""
+    calls = []
+    orig = dist.all_reduce
+
+    def counted(t, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(t, *a, **kw)
+        torch.cuda.synchronize()
+        calls.append((t.numel(), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    dist.all_reduce = counted
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = orig
+
+
+def _dp_train_rank(rank, store, cfgs, res_dir, dev):
+    """One rank of ``main_path_train_dp``: float32, one step on the rank's 4
+    images of the global batch; bf16, ``Trainer.run()`` for 3 steps with the
+    launches counted, then the rank's step timed, its peak memory, the
+    packed gradient all-reduce and the BN all-reduces of one step."""
+    dev = torch.device(dev)
+    initialize_distributed("gloo", f"file://{store}", world_size=DP_TRAIN_RANKS, rank=rank,
+                           device=dev)
+    out = {}
+    trainer = train_loop.Trainer(cfgs["float32"], device=dev)
+    check(trainer.group is not None and trainer.group.size == DP_TRAIN_RANKS
+          and trainer.rank == rank, f"rank {rank}: no data group of {DP_TRAIN_RANKS}")
+    host = _global_batch(cfgs["float32"])
+    per = cfgs["float32"].batch_size // DP_TRAIN_RANKS
+    local = {k: v[rank * per:(rank + 1) * per] for k, v in host.items()}
+    for dtype in ("float32", "float64"):
+        torch.save(_one_step(trainer, local, dtype),
+                   os.path.join(res_dir, f"{dtype}_rank{rank}.pt"))
+    del trainer
+
+    saves = []
+    for name in ("save", "save_config_snapshot"):
+        orig = getattr(CheckpointStore, name)
+        setattr(CheckpointStore, name,
+                lambda *a, _o=orig, _n=name: (saves.append(_n), _o(*a))[1])
+    cfg = cfgs["bfloat16"]
+    trainer = train_loop.Trainer(cfg, device=dev)
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = trainer.run()
+    torch.cuda.synchronize()
+    out["run_wall_s"] = time.perf_counter() - t0
+    out["launches_per_step"] = _train_launches(f"dp training rank {rank}", read_counters(),
+                                               DP_TRAIN_STEPS)
+    out["losses"], out["saves"] = res["losses"], saves
+    check(res["step"] == DP_TRAIN_STEPS and len(res["losses"]) == DP_TRAIN_STEPS
+          and all(np.isfinite(res["losses"])), f"dp rank {rank}: {res['step']} steps, "
+                                              f"losses {res['losses']}")
+    state = res["state"]
+    out["state_digest"] = _state_digest(state)
+
+    loader = pipeline.TrainLoader(cfg, "train", seed=1, host_index=rank,
+                                  host_count=DP_TRAIN_RANKS)
+    try:
+        batch = trainer._place_batch(next(loader.batches()))
+    finally:
+        loader.close()
+    step = trainer.train_step_fn
+    times = []
+    for _ in range(TIMED_STEPS + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    out["ms_per_step"] = float(np.median(times[1:]))
+    out["step_readings_ms"] = times
+    out["peak_mem_GB_one_step"] = _peak_gb(lambda: step(state, batch))
+    grads = [torch.zeros_like(p) for p in train_loop.leaves(state["params"])]
+    grads += [torch.zeros((), device=dev) for _ in train_loop.METRIC_KEYS]
+    out["grad_all_reduce_MB"] = sum(g.numel() for g in grads) * 4 / 1e6
+    out["grad_all_reduce_wall_ms"] = wall_ms(
+        lambda: trainer.group.all_reduce_mean_packed(grads), 3)
+    packed = sum(g.numel() for g in grads)
+    with counted_all_reduces() as calls:
+        step(state, batch)
+    bn = [ms for n, ms in calls if n != packed]
+    out["all_reduces_per_step"] = len(calls)
+    out["bn_all_reduces_per_step"] = len(bn)
+    out["bn_all_reduce_wall_ms_per_step"] = float(sum(bn))
+    out["packed_all_reduces_per_step"] = len(calls) - len(bn)
+    return out
+
+
+def main_path_train_dp(tmp, dev, card):
+    """Data-parallel training, ``mesh_shape={'data': 2}``: two spawned ranks
+    on the one card over gloo (NCCL will not put two ranks on one card), the
+    pretraining configuration (aleatoric, crops of 768x1440 from 1024x1920
+    frames, global batch 8 — 4 a rank —, frozen backbone).  One step of
+    the two ranks against one rank on the same global batch, in float64
+    (``DP_TRAIN_F64_TOL``) and float32 (``DP_TRAIN_TOL``, the gradients
+    against a control); the worst of each printed.  bf16, 3 steps through
+    ``Trainer.run()``: launches a step and rank (stem 1, res block 11,
+    downsample 2), finite losses, the ranks' params, Adam state and
+    statistics bit-equal, rank 0 alone writing the config snapshot and the
+    checkpoints.  Times: ms a step per rank (the ranks time-slice the one
+    card), the packed gradient all-reduce, the BN all-reduces, peak memory."""
+    from bayesian_yolov3_torch.cli import pretraining
+
+    pattern = write_train_records(os.path.join(tmp, "train_dp_data"),
+                                  np.random.default_rng(23), TRAIN_FRAMES, IMG[:2], shards=2)
+    cfgs = {dtype: train_config(tmp, pretraining.DEFAULTS, pattern, run_id=f"smoke_dp_{dtype}",
+                                train_steps=DP_TRAIN_STEPS, checkpoint_interval=DP_TRAIN_STEPS,
+                                compute_dtype=dtype, mesh_shape={"data": DP_TRAIN_RANKS})
+            for dtype in ("float32", "bfloat16")}
+    check(cfgs["bfloat16"].batch_size == 8 and cfgs["bfloat16"].img_size == (768, 1440, 3),
+          f"the pretraining configuration changed: {cfgs['bfloat16']}")
+    res_dir = os.path.join(tmp, "train_dp_ranks")
+    os.makedirs(res_dir)
+    ranks, wall = spawn_ranks(_dp_train_rank, DP_TRAIN_RANKS, res_dir,
+                              os.path.join(res_dir, "store"), cfgs, res_dir, str(dev))
+    out = {"ranks": DP_TRAIN_RANKS, "backend": "gloo", "global_batch": 8, "crop": [768, 1440],
+           "steps": DP_TRAIN_STEPS, "phase_wall_s": wall, "card": card,
+           "note": "the two ranks time-slice one card"}
+
+    # one step: the ranks' against one rank's on the whole global batch
+    cfg1 = dataclasses.replace(cfgs["float32"], mesh_shape={})
+    single = train_loop.Trainer(cfg1, device=dev)
+    host = _global_batch(cfg1)
+    agree = {}
+    for dtype in ("float64", "float32"):
+        got = [torch.load(os.path.join(res_dir, f"{dtype}_rank{r}.pt"))
+               for r in range(DP_TRAIN_RANKS)]
+        for r in got[1:]:  # the gradients and the statistics are the group's, on every rank
+            check(r["loss"] == got[0]["loss"]
+                  and all(torch.equal(r["grads"][k], got[0]["grads"][k]) for k in r["grads"])
+                  and all(torch.equal(r["stats"][k], got[0]["stats"][k]) for k in r["stats"]),
+                  f"dp {dtype}: the ranks' losses, gradients or statistics differ")
+        one = _one_step(single, host, dtype)
+        tol = DP_TRAIN_F64_TOL if dtype == "float64" else DP_TRAIN_TOL
+        agree[dtype] = _steps_agree(f"dp {dtype}", got[0], one, tol)
+        agree[dtype]["tolerance"] = tol
+        if dtype == "float64":
+            check(agree[dtype]["worst_grad_rel_l2"] <= tol["grad"],
+                  f"dp float64: gradient of {agree[dtype]['worst_grad_leaf']} at relative L2 "
+                  f"{agree[dtype]['worst_grad_rel_l2']}")
+            one64 = one
+    # the control: one rank's float32 step against its float64 step
+    control = _steps_agree("dp control", one, one64, {"loss": 1.0, "stats": 1.0})
+    agree["float32_control_one_rank_vs_float64"] = control
+    for q in ("median", "p90"):
+        got, ctl = agree["float32"][f"{q}_grad_rel_l2"], control[f"{q}_grad_rel_l2"]
+        check(got <= DP_TRAIN_SPREAD_RATIO * ctl,
+              f"dp float32: the {q} of the leaves' gradient gaps {got} > "
+              f"{DP_TRAIN_SPREAD_RATIO} x the control's {ctl}")
+    out["two_ranks_vs_one"] = agree
+    del single, one, one64
+
+    # bf16 through Trainer.run(): every rank alike, rank 0 alone writing
+    check(len({r["state_digest"] for r in ranks}) == 1,
+          "dp bf16: the ranks' params, Adam state or statistics differ after the run")
+    check(ranks[0]["losses"] == ranks[1]["losses"], "dp bf16: the ranks read other losses")
+    check(sorted(ranks[0]["saves"]) == ["save", "save", "save_config_snapshot"]
+          and ranks[1]["saves"] == [], f"dp bf16: writes {[r['saves'] for r in ranks]}")
+    store_dir = os.path.join(cfgs["bfloat16"].checkpoint_path, cfgs["bfloat16"].run_id)
+    check(CheckpointStore(cfgs["bfloat16"].checkpoint_path,
+                          cfgs["bfloat16"].run_id).all_steps() == [DP_TRAIN_STEPS]
+          and os.path.exists(os.path.join(store_dir, "metrics.jsonl")),
+          f"dp bf16: checkpoints / metrics in {os.listdir(store_dir)}")
+    out["bfloat16"] = {"per_rank": [{k: v for k, v in r.items() if k not in ("saves",)}
+                                    for r in ranks]}
+    return out
+
+
+# --------------------------------------------------------------------------
+# the tools
+# --------------------------------------------------------------------------
+
+VIS_KEYS, VIS_PNGS = 11, 99  # 11 keys x 3 scales x 3 priors a frame
+# the hand-written kernels a trace should show by their CUDA function names
+TRACED_KERNELS = ("stem_kernel", "res_block_kernel", "downsample_kernel")
+
+
+def _png_hw(path):
+    """(height, width, colour type) from a PNG's IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(26)
+    return (int.from_bytes(head[20:24], "big"), int.from_bytes(head[16:20], "big"), head[25])
+
+
+def _gt_records(path, names, rng):
+    """GT tfrecords for the frames ``names``: 2-5 seeded boxes of both
+    classes each (the weights are random, so the metrics measure nothing
+    but that the tool runs)."""
+    os.makedirs(path, exist_ok=True)
+    with tfrecord.TFRecordWriter(os.path.join(path, "gt-00000-of-00001.tfrecord")) as wr:
+        for i, name in enumerate(names):
+            n = int(rng.integers(2, 6))
+            yx = rng.uniform(0, 0.7, (n, 2))
+            boxes = np.concatenate([yx, yx + rng.uniform(0.05, 0.3, (n, 2))], 1).astype(np.float32)
+            labels = (np.arange(n) + i) % C + 1
+            wr.write(proto.encode_example({
+                "image/encoded": [pipeline.encode_png(np.zeros((8, 8, 3), np.uint8))],
+                "image/filename": [f"{name}.png".encode()],
+                "image/object/bbox/ymin": boxes[:, 0], "image/object/bbox/xmin": boxes[:, 1],
+                "image/object/bbox/ymax": boxes[:, 2], "image/object/bbox/xmax": boxes[:, 3],
+                "image/object/class/label": labels.astype(np.int64)}))
+    return os.path.join(path, "gt-*-of-*.tfrecord")
+
+
+def _qualitative(cli, argv, frames, qdir, n_copies, dev):
+    """A training CLI with ``--set training=false`` (the qualitative eval)
+    run in ``qdir`` with its launches counted; each PNG's pixels against
+    ``draw_boxes`` of ``filter_and_score`` of ``runner.predict`` on the same
+    copies under the same key tables."""
+    from bayesian_yolov3_torch.cli._common import build_config
+    from bayesian_yolov3_torch.infer.detect import center_crop, draw_boxes, filter_and_score
+    from bayesian_yolov3_torch.infer.qualitative import eval_config
+
+    os.makedirs(qdir)
+    reset_counters()
+    t0 = time.perf_counter()
+    with contextlib.chdir(qdir):
+        written = [os.path.join(qdir, p) for p in cli.main(["--set", "training=false"] + argv)]
+    torch.cuda.synchronize()
+    res = {"wall_s": time.perf_counter() - t0, "launches": read_counters(),
+           "pngs": len(written)}
+    check(len(written) == len(frames) * n_copies,
+          f"qualitative eval: {len(written)} PNGs for {len(frames)} frames x {n_copies}")
+    cfg = build_config(cli.DEFAULTS, ["--set", "training=false"] + argv)
+    runner = InferenceRunner(eval_config(cfg), seed=0, device=dev)
+    params, stats, _ = runner.load_state()
+    gen = torch.Generator().manual_seed(0)
+    boxes_n = []
+    for i, frame in enumerate(frames):
+        img = frame.astype(np.float32) / 255.0
+        if cfg.crop:
+            img = center_crop(img, cfg.crop_img_size)
+        rows, valid = runner.predict(params, stats, np.repeat((img[None] * 255).astype(np.uint8),
+                                                              n_copies, axis=0),
+                                     runner.draw_keys(gen))
+        for b in range(n_copies):
+            boxes = filter_and_score(rows[b], valid[b], runner.spec, runner.epistemic,
+                                     cfg.thresh, img.shape[:2])
+            boxes_n.append(len(boxes))
+            with open(written[i * n_copies + b], "rb") as f:
+                png = pipeline.decode_png(f.read())
+            check(np.array_equal(png, draw_boxes(img, boxes)),
+                  f"qualitative eval: {written[i * n_copies + b]} is not the drawing of "
+                  "predict's boxes")
+    res["boxes_per_copy"] = boxes_n
+    res["model"], res["epistemic"], res["crop"] = cfg.model, runner.epistemic, cfg.crop
+    return res
+
+
+def _citypersons(root, rng):
+    """A tiny CityPersons tree — one 1024x2048 frame a split and the .mat
+    annotations written by scipy — through ``process_dataset``, read back."""
+    import scipy.io
+
+    from bayesian_yolov3_torch.data import citypersons
+
+    img_root = os.path.join(root, "cityscapes", "leftImg8bit_trainvaltest", "leftImg8bit")
+    anno_dir = os.path.join(root, "citypersons", "annotations")
+    os.makedirs(anno_dir)
+    dt = np.dtype([("cityname", "O"), ("im_name", "O"), ("bbs", "O")])
+    frames = {}
+    for split in ("train", "val"):
+        city, name = "smokecity", f"smokecity_{split}_000000.png"
+        os.makedirs(os.path.join(img_root, split, city))
+        frames[split] = seeded_frame(rng, (1024, 2048))
+        with open(os.path.join(img_root, split, city, name), "wb") as f:
+            f.write(pipeline.encode_png(frames[split], level=1))
+        rec = np.zeros((1, 1), dtype=dt)
+        rec[0, 0] = (np.asarray([city]), np.asarray([name]), np.asarray(
+            [[1, 100, 200, 50, 120, 1, 0, 0, 0, 0], [2, 400, 300, 40, 100, 2, 0, 0, 0, 0],
+             [0, 0, 0, 10, 10, 3, 0, 0, 0, 0], [3, 700, 100, 20, 60, 4, 0, 0, 0, 0]], np.uint16))
+        arr = np.empty((1, 1), object)
+        arr[0, 0] = rec
+        scipy.io.savemat(os.path.join(anno_dir, f"anno_{split}.mat"),
+                         {f"anno_{split}_aligned": arr})
+    out_dir = os.path.join(root, "records")
+    t0 = time.perf_counter()
+    citypersons.process_dataset(out_dir=out_dir, dataset_name="cp",
+                                anno_dir=os.path.join(root, "citypersons"),
+                                img_dir=os.path.join(root, "cityscapes"), train_shards=1,
+                                val_shards=1, shuffle=True)
+    wall = time.perf_counter() - t0
+    for split in ("train", "val"):
+        recs = list(tfrecord.read_records(os.path.join(out_dir, f"cp-{split}-00001-of-00001"),
+                                          verify=True))
+        check(len(recs) == 1, f"citypersons {split}: {len(recs)} records")
+        feats = proto.decode_example(recs[0])
+        check(sorted(feats["image/object/class/label"]) == [1, 1, 2]
+              and int(feats["image/object/cnt"][0]) == 3,
+              f"citypersons {split}: labels {feats['image/object/class/label']}")
+        check(np.array_equal(pipeline.decode_png(feats["image/encoded"][0]), frames[split]),
+              f"citypersons {split}: the re-encoded frame's pixels differ")
+    sizes = np.load(os.path.join(out_dir, "cp-train-box_sizes.npy"))
+    check(sizes.shape == (3, 2), f"citypersons box sizes {sizes.shape}")
+    return {"wall_s": wall, "records": 2, "box_sizes": sizes.tolist()}
+
+
+def _trace_step(root, train_pattern, dev):
+    """One pretraining step (bf16, the fused chain) inside ``trace`` with
+    ``annotate`` around it: the Chrome trace's annotation, its CUDA events,
+    and whether the kernels launched through ctypes appear by name."""
+    from bayesian_yolov3_torch.cli import pretraining
+    from bayesian_yolov3_torch.utils.profiling import annotate, trace
+
+    cfg = train_config(root, pretraining.DEFAULTS, train_pattern, run_id="smoke_trace")
+    trainer = train_loop.Trainer(cfg, device=dev)
+    state = trainer.fresh_state()
+    batch = trainer._place_batch(_global_batch(cfg))
+    trainer.train_step_fn(state, batch)  # warm
+    log_dir = os.path.join(root, "trace")
+    with trace(log_dir) as prof:
+        with annotate("smoke_train_step"):
+            trainer.train_step_fn(state, batch)
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = {e.get("name", "") for e in kernels}
+    seen = {k: any(k in n for n in names) for k in TRACED_KERNELS}
+    check(any(e.get("name") == "smoke_train_step" for e in events),
+          "trace: the annotation is missing")
+    check(kernels, f"trace: no CUDA kernel event among {len(events)} events")
+    device_us = sum(e.get("dur", 0) for e in kernels)
+    return {"events": len(events), "cuda_kernel_events": len(kernels),
+            "ctypes_kernels_in_trace": seen, "kernel_us_in_step": device_us,
+            "trace_bytes": os.path.getsize(os.path.join(log_dir, "trace.json")),
+            "key_averages_device_ms": sum(
+                getattr(a, "device_time_total", getattr(a, "cuda_time_total", 0))
+                for a in prof.key_averages()) / 1e3}
+
+
+def main_path_tools(tmp, dev, card, json_dir=None, train_pattern=None):
+    """The tools on the card's machine, without PIL, matplotlib or
+    tensorflow: ``cli/vis_uncertainty.py`` on one seeded 1024x1920 PNG
+    (bayesian, T=30, bf16, random weights from a checkpoint) — 99 PNGs, 3
+    epistemic decode launches, the maps equal to the columns of the
+    runner's decoded rows; the qualitative eval through
+    ``cli/uncertainty_training.py`` and ``cli/yolov3_training.py`` with
+    ``--set training=false`` on 2 frames; ``cli/evaluate_detections.py``
+    on ``json_dir`` (None: a run of the epistemic runner over the 2 frames)
+    against GT records of its frames; ``data/citypersons.py`` on a tiny
+    tree; ``trace`` / ``annotate`` around one training step."""
+    from bayesian_yolov3_torch.cli import (evaluate_detections, uncertainty_training,
+                                           vis_uncertainty, yolov3_training)
+    from bayesian_yolov3_torch.cli._common import build_config
+    from bayesian_yolov3_torch.infer import vis as vis_mod
+    from bayesian_yolov3_torch.infer.detect import load_img
+    from bayesian_yolov3_torch.ops.decode import scale_plan
+
+    root = os.path.join(tmp, "tools")
+    rng = np.random.default_rng(31)
+    frames = [seeded_frame(rng, IMG[:2]) for _ in range(2)]
+    val_pattern = write_records(os.path.join(root, "val"), frames)
+    ckpt = os.path.join(root, "ckpt")
+    for run_id, model, seed in (("tools_bayes", "bayesian", 0), ("tools_std", "standard", 1)):
+        cfg = Config(model=model, cls_cnt=C, checkpoint_path=ckpt, run_id=run_id)
+        save_checkpoint(cfg, *random_state(seed, cfg.variant_spec, "cpu"), step=1)
+    out = {"card": card}
+
+    # the heatmaps, through the CLI
+    png = os.path.join(root, "frame.png")
+    with open(png, "wb") as f:
+        f.write(pipeline.encode_png(frames[0], level=1))
+    vis_dir = os.path.join(root, "vis")
+    argv = ["--set", f"checkpoint_path={ckpt}", "--set", "run_id=tools_bayes"]
+    reset_counters()
+    t0 = time.perf_counter()
+    written = vis_uncertainty.main([png, "--out-dir", vis_dir] + argv)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    res = {"cli_wall_s": time.perf_counter() - t0, "launches": launches, "pngs": len(written)}
+    check(len(written) == VIS_PNGS == len(set(written)), f"vis: {len(written)} PNGs")
+    check(all(_png_hw(p) == (IMG[0], IMG[1], 2) for p in written),
+          "vis: a PNG is not 1024x1920 RGB")
+    check(launches["epistemic_decode"] == 3 and launches["fused_stem"] == 1
+          and launches["fused_res_block"] == 11 and launches["fused_downsample"] == 2
+          and not launches["greedy_nms"], f"vis: launches {launches}")
+    vis = vis_mod.UncertaintyVisualizer(build_config(vis_uncertainty.DEFAULTS, argv), device=dev)
+    check(vis.config.T == T and vis.config.compute_dtype == "bfloat16",
+          f"vis: T {vis.config.T}, {vis.config.compute_dtype}, not T={T} in bf16")
+    img = load_img(png)
+    maps = vis.maps(img)
+    u8 = vis.runner._to_device(frames[0][None])
+    rows = vis.runner._decoded_rows(vis.params, vis.stats, u8, vis.keys)[0].cpu().numpy()
+    plan = scale_plan(vis.hws)
+    for key, col in vis_mod.map_columns(C).items():
+        for s, (off, (h, w)) in enumerate(zip(plan.row_off, plan.hws)):
+            for p in range(3):
+                want = rows[off + p * h * w:off + (p + 1) * h * w, col].reshape(h, w)
+                check(np.array_equal(maps[key][s][..., p], want),
+                      f"vis: map {key} scale {s} prior {p} differs from the rows' column {col}")
+    res["maps_equal_rows"] = True
+    res["device_ms"] = wall_ms(lambda: vis.maps(img), 3)
+    render_ms = wall_ms(lambda: vis.render(img, os.path.join(root, "vis2"), tag="t"), 1)
+    res["png_writing_ms"] = render_ms - res["device_ms"]
+    out["vis_uncertainty"] = res
+    del vis, rows, maps
+
+    # the qualitative eval: bayesian (epistemic, T=20, crop) and batched standard (crop, 8
+    # copies), each through its training CLI
+    common = [f"checkpoint_path={ckpt}", f"val.file_pattern={val_pattern}",
+              f"log_path={os.path.join(root, 'log')}", "cpu_thread_cnt=2"]
+    qual = {}
+    for name, cli, run_id, copies in (("bayesian", uncertainty_training, "tools_bayes", 2),
+                                      ("standard", yolov3_training, "tools_std", 8)):
+        argv = [a for kv in common + [f"run_id={run_id}"] for a in ("--set", kv)]
+        q = _qualitative(cli, argv, frames, os.path.join(root, f"qual_{name}"), copies, dev)
+        n = len(frames)  # one predict a frame: every copy in one batched call
+        lk = q["launches"]
+        decode = ({"epistemic_decode": 3 * n, "box_decode": 0} if q["epistemic"]
+                  else {"epistemic_decode": 0, "box_decode": n})
+        check(all(lk[k] == v for k, v in decode.items()) and lk["fused_stem"] == n
+              and lk["fused_res_block"] == 11 * n and lk["fused_downsample"] == 2 * n
+              and lk["greedy_nms"] >= n, f"qualitative {name}: launches {lk}")
+        qual[name] = q
+    check(qual["bayesian"]["epistemic"] and qual["standard"]["crop"],
+          "qualitative: the eval configurations changed")
+    out["qualitative"] = qual
+
+    # evaluate_detections on the epistemic main path's JSON
+    if json_dir is None:
+        cfg = make_config(root, "tools_bayes", IMG, T, val_pattern,  # ckpt: root/ckpt
+                          out_path=os.path.join(root, "out", "eval"))
+        json_dir = InferenceRunner(cfg, seed=0, device=dev).run()
+    names = sorted(os.path.splitext(f)[0] for f in os.listdir(json_dir) if f.endswith(".json"))
+    gt = _gt_records(os.path.join(root, "gt"), names, rng)
+    t0 = time.perf_counter()
+    metrics = evaluate_detections.main([json_dir, "--set", f"data.file_pattern={gt}"])
+    check(set(metrics) == {"per_class", "mAP"} and set(metrics["per_class"]) == set(range(C))
+          and all(set(m) == {"ap", "lamr"} and all(np.isfinite(list(m.values())))
+                  for m in metrics["per_class"].values()) and np.isfinite(metrics["mAP"]),
+          f"evaluate_detections: {metrics}")
+    out["evaluate_detections"] = {"wall_s": time.perf_counter() - t0, "frames": len(names),
+                                  **metrics}
+
+    out["citypersons"] = _citypersons(os.path.join(root, "citypersons"), rng)
+    if train_pattern is None:
+        train_pattern = write_train_records(os.path.join(root, "train"),
+                                            np.random.default_rng(21), 8, IMG[:2])
+    out["trace"] = _trace_step(root, train_pattern, dev)
+    return out
+
+
 def _numbers(d):
     """The flat numbers of a phase's result (no nested dicts, lists or flags)."""
     return {k: v for k, v in d.items()
@@ -3267,7 +3860,7 @@ def _peaks(summary):
 
 
 def summarize(main_summary, timings, split, mc, mc2, b_summary, b_timings, gemm, int8, dp, sp,
-              train):
+              train, train_dp, tools):
     """One compact line of the numbers each phase measured (ms per frame,
     stages, all-reduce, peak memory of every run, launches per frame),
     printed just before the kernels line so that the end of the output
@@ -3323,6 +3916,23 @@ def summarize(main_summary, timings, split, mc, mc2, b_summary, b_timings, gemm,
                                 for k in ("loss_rel_err", "all_leaves_max_grad_rel_l2")},
         "cpu_vs_card_float64": {k: train["cpu_vs_card"]["float64"][k]
                                 for k in ("loss_rel_err", "all_leaves_max_grad_rel_l2")}}
+    out["train_dp"] = {
+        "phase_wall_s": train_dp["phase_wall_s"],
+        "two_ranks_vs_one": {d: {k: v for k, v in a.items() if k != "tolerance"}
+                             for d, a in train_dp["two_ranks_vs_one"].items()},
+        "per_rank": [{k: r[k] for k in ("ms_per_step", "peak_mem_GB_one_step",
+                                        "grad_all_reduce_MB", "grad_all_reduce_wall_ms",
+                                        "bn_all_reduces_per_step",
+                                        "bn_all_reduce_wall_ms_per_step", "launches_per_step",
+                                        "run_wall_s")}
+                     for r in train_dp["bfloat16"]["per_rank"]]}
+    v, q = tools["vis_uncertainty"], tools["qualitative"]
+    out["tools"] = {
+        "vis": {k: v[k] for k in ("device_ms", "png_writing_ms", "cli_wall_s", "pngs")},
+        "qualitative": {k: {"wall_s": r["wall_s"], "pngs": r["pngs"]} for k, r in q.items()},
+        "evaluate_detections_mAP": tools["evaluate_detections"]["mAP"],
+        "citypersons_wall_s": tools["citypersons"]["wall_s"],
+        "trace": tools["trace"]}
     return out
 
 
@@ -3377,6 +3987,14 @@ def main():
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             emit("main_path_train", card=card, **main_path_train(tmp, dev, card))
         return 0
+    if sys.argv[1:] == ["--train-dp"]:  # the dp training phase alone: no result line
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            emit("main_path_train_dp", **main_path_train_dp(tmp, dev, card))
+        return 0
+    if sys.argv[1:] == ["--tools"]:  # the tools phase alone: no result line
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            emit("main_path_tools", **main_path_tools(tmp, dev, card))
+        return 0
 
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)  # > 50 MB L2
     kernels = [check_epistemic(dev, flush), check_nms(dev), check_stem(dev, flush),
@@ -3424,6 +4042,14 @@ def main():
         del b_runner, b_runner32
         train = main_path_train(tmp, dev, card)
         emit("main_path_train", card=card, **train)
+        t0 = time.time()
+        train_dp = main_path_train_dp(tmp, dev, card)
+        emit("main_path_train_dp", seconds=time.time() - t0, **train_dp)
+        t0 = time.time()
+        tools = main_path_tools(tmp, dev, card, json_dir=os.path.join(tmp, "out", "smoke_1"),
+                                train_pattern=os.path.join(tmp, "train_data",
+                                                           "train-*-of-*.tfrecord"))
+        emit("main_path_tools", seconds=time.time() - t0, **tools)
 
     # launches: each kernel's count from its own path's run — the epistemic
     # bf16 main path; for box_decode the batched aleatoric bf16 run; for the
@@ -3435,7 +4061,7 @@ def main():
         k["launches"] = path.get(k["name"], launches)[k["name"]]
     emit("summary", card=card, ptxas=ptxas, smoke_wall_s=time.time() - t_start,
          **summarize(summary, timings, split, mc_summary, mc2, b_summary, b_timings, gemm,
-                     int8, dp, sp, train))
+                     int8, dp, sp, train, train_dp, tools))
     emit("done", seconds=time.time() - t_start)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

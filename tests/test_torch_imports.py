@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: importing every module of
 ``bayesian_yolov3_torch`` and ``chip_smoke`` (without running it) pulls in
-neither jax nor orbax nor the JAX package — checked in a fresh interpreter,
-because this test process has all three loaded."""
+neither jax nor orbax nor the JAX package, nor PIL, matplotlib or
+tensorflow, which the card's machine lacks (the tools import them, where at
+all, inside the function that needs them) — checked in a fresh
+interpreter, because this test process has them loaded."""
 
 import json
 import os
@@ -26,7 +28,8 @@ report = {}
 for name in sys.argv[1:]:
     importlib.import_module(name)
     report[name] = sorted(m for m in sys.modules
-                          if m.split('.')[0] in ('jax', 'jaxlib', 'orbax', 'bayesian_yolov3_tpu'))
+                          if m.split('.')[0] in ('jax', 'jaxlib', 'orbax', 'bayesian_yolov3_tpu',
+                                                 'PIL', 'matplotlib', 'tensorflow'))
 print(json.dumps(report))
 """
 
@@ -61,7 +64,16 @@ def test_every_module_is_listed():
                    "bayesian_yolov3_torch.utils.profiling", "bayesian_yolov3_torch.train.loop",
                    "bayesian_yolov3_torch.cli.pretraining",
                    "bayesian_yolov3_torch.cli.uncertainty_training",
-                   "bayesian_yolov3_torch.cli.yolov3_training"):
+                   "bayesian_yolov3_torch.cli.yolov3_training",
+                   "bayesian_yolov3_torch.models.tf1_import", "bayesian_yolov3_torch.eval",
+                   "bayesian_yolov3_torch.eval.detection_metrics",
+                   "bayesian_yolov3_torch.cli.evaluate_detections",
+                   "bayesian_yolov3_torch.data.citypersons",
+                   "bayesian_yolov3_torch.cli.create_tf_records_citypersons",
+                   "bayesian_yolov3_torch.data.prior_clustering",
+                   "bayesian_yolov3_torch.infer.vis", "bayesian_yolov3_torch.infer.plasma",
+                   "bayesian_yolov3_torch.cli.vis_uncertainty",
+                   "bayesian_yolov3_torch.infer.qualitative"):
         assert needed in MODULES
 
 

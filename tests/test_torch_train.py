@@ -516,7 +516,9 @@ def test_warm_start_pretrain_to_uncertainty(tmp_path, dataset):
 
 
 def test_dp_training_is_refused():
-    with pytest.raises(NotImplementedError, match="dp training"):
+    """dp training (``mesh_shape={'data': 2}``) without a process group of two
+    ranks is refused (``tests/test_torch_train_dp.py`` trains over one)."""
+    with pytest.raises(RuntimeError, match="world size 2"):
         tloop.Trainer(_config("standard", False, mesh_shape={"data": 2}), device="cpu")
 
 

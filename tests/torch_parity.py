@@ -118,21 +118,33 @@ def run_ranks(target, world, out, *args, timeout_s=JOIN_TIMEOUT_S):
     lands in ``out/rank<r>.err`` and in the failure message; a rank still
     running at the deadline is killed and fails the job, so a collective
     that never completes cannot hang the test run."""
+    start_ranks(target, world, out, *args, timeout_s=timeout_s)()
+
+
+def start_ranks(target, world, out, *args, timeout_s=JOIN_TIMEOUT_S):
+    """``run_ranks`` in two halves: start the processes and return
+    ``join()``, which waits for them as ``run_ranks`` does (the deadline
+    counted from the start), so that the test process can compute its
+    references meanwhile."""
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_rank_entry, args=(target, r, out, args))
              for r in range(world)]
     for p in procs:
         p.start()
     deadline = time.time() + timeout_s
-    for p in procs:
-        p.join(max(0.0, deadline - time.time()))
-    hung = [p for p in procs if p.is_alive()]
-    for p in hung:
-        p.kill()
-        p.join()
-    errs = "\n".join(open(f).read() for f in sorted(glob.glob(os.path.join(out, "*.err"))))
-    assert not hung, f"{len(hung)} rank(s) still running after {timeout_s} s\n{errs}"
-    assert [p.exitcode for p in procs] == [0] * world, errs
+
+    def join():
+        for p in procs:
+            p.join(max(0.0, deadline - time.time()))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        errs = "\n".join(open(f).read() for f in sorted(glob.glob(os.path.join(out, "*.err"))))
+        assert not hung, f"{len(hung)} rank(s) still running after {timeout_s} s\n{errs}"
+        assert [p.exitcode for p in procs] == [0] * world, errs
+
+    return join
 
 
 def free_port():
