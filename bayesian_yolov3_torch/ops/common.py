@@ -8,7 +8,8 @@ stored OIHW (``convert.params_from_jax`` turns HWIO into that).
 
 Stride-2 convs use an explicit (1,1)x(1,1) zero pad then VALID — the
 darknet/caffe padding, which for k=3 equals torch ``padding=1, stride=2``
-and differs from TF 'SAME' on even inputs.
+and differs from TF 'SAME' on even inputs; ``darknet_pad=False`` takes TF
+'SAME' (the total pad split with the extra row and column at the end).
 
 float32 compute means true float32: every float32 conv / matmul here first
 sets ``torch.backends.cudnn.allow_tf32`` and
@@ -58,22 +59,30 @@ def leaky_relu(x: torch.Tensor, alpha: float = LEAKY_ALPHA) -> torch.Tensor:
     return torch.where(x >= 0, x, alpha * x)
 
 
+def _same_pad(size: int, k: int, stride: int = 2):
+    """TF "SAME" padding of one axis: (before, after), the odd row after."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
            darknet_pad: bool = True, padding=None) -> torch.Tensor:
     """2D conv, no bias.  x NHWC, w OIHW -> NHWC.
 
     stride-1: SAME padding.  stride-2: explicit (1,1)x(1,1) zero pad then
-    VALID (darknet semantics).  ``padding`` — ((top, bottom), (left,
-    right)) — overrides both.  float32 operands run in true float32.
+    VALID (darknet semantics), or with ``darknet_pad=False`` TF "SAME"
+    (``_same_pad``).  ``padding`` — ((top, bottom), (left, right)) —
+    overrides them.  float32 operands run in true float32.
     """
     k = w.shape[2]
     if padding is None:
         if stride == 2 and not darknet_pad:
-            raise NotImplementedError("TF-SAME stride-2 padding is not ported")
-        if stride == 2 and k != 3:
+            padding = (_same_pad(x.shape[1], k), _same_pad(x.shape[2], k))
+        elif stride == 2 and k != 3:
             raise ValueError("stride-2 darknet conv requires a 3x3 kernel")
-        p = (k - 1) // 2
-        padding = ((p, p), (p, p))
+        else:
+            p = (k - 1) // 2
+            padding = ((p, p), (p, p))
     (pt, pb), (pl, pr) = padding
     if x.dtype == torch.float32:
         _true_float32()

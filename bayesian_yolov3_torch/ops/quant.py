@@ -75,6 +75,20 @@ def _im2col(x: torch.Tensor, k: int) -> torch.Tensor:
     return cols.view(torch.int8).reshape(n * h * w, k * k * c)
 
 
+_INT_MM_MIN_ROWS = 17  # the card's int8 product takes more than 16 rows
+
+
+def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch._int_mm`` (int8 x int8 -> int32) for any number of rows of
+    ``a``: fewer than the card's minimum are zero-padded, and the padding's
+    rows dropped from the product."""
+    m = a.shape[0]
+    if m >= _INT_MM_MIN_ROWS:
+        return torch._int_mm(a, b)
+    pad = a.new_zeros((_INT_MM_MIN_ROWS - m, a.shape[1]))
+    return torch._int_mm(torch.cat([a, pad]), b)[:m]
+
+
 def conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     """int8 NHWC x int8 OIHW -> int32 NHWC, SAME padding, stride 1 (the head
     section has no stride-2 convs).  Exact: im2col, then one int32-
@@ -82,7 +96,7 @@ def conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     n, h, w, _ = x_q.shape
     cout, _, k, _ = w_q.shape
     wmat = w_q.permute(0, 2, 3, 1).reshape(cout, -1)  # (cout, k*k*cin)
-    return torch._int_mm(_im2col(x_q, k), wmat.t()).reshape(n, h, w, cout)
+    return _int_mm(_im2col(x_q, k), wmat.t()).reshape(n, h, w, cout)
 
 
 def quant_block(qp: Dict, x_q: torch.Tensor, *, drop_rate: Optional[float] = None,
@@ -112,7 +126,7 @@ def detection_acc_int8(wq: torch.Tensor, feats_q: torch.Tensor) -> torch.Tensor:
     ch = wq.shape[0]
     pad = -ch % 8
     w = torch.cat([wq, wq.new_zeros((pad, cin))]) if pad else wq
-    acc = torch._int_mm(feats_q.reshape(t * m, cin), w.t())  # (T*M, ch + pad)
+    acc = _int_mm(feats_q.reshape(t * m, cin), w.t())  # (T*M, ch + pad)
     return acc[:, :ch].t().reshape(ch, t, m)
 
 

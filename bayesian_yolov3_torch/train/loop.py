@@ -99,6 +99,11 @@ def _map(tree: Dict, fn) -> Dict:
     return {k: _map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
+def detached(tree: Dict) -> Dict:
+    """The tree's tensors, detached from autograd (no copy)."""
+    return _map(tree, torch.Tensor.detach)
+
+
 def _seed_of(seed: int, step: int, stream: int) -> np.random.SeedSequence:
     return np.random.SeedSequence([int(seed), int(step), stream])
 

@@ -7,10 +7,12 @@ NVIDIA Hopper GPU.  Run from the repository root, no arguments, one card:
     python3 chip_smoke.py --train     # build and the training phase only
     python3 chip_smoke.py --train-dp  # build and the dp training phase only
     python3 chip_smoke.py --tools     # build and the tools phase only
+    python3 chip_smoke.py --parity    # build and parity_fullres_torch.py's main only
 
-It imports only ``bayesian_yolov3_torch``, torch, numpy and the standard
-library; needs a CUDA device (exits non-zero without one) and ``nvcc``
-(every kernel is built from ``bayesian_yolov3_torch/csrc`` in this run).
+It imports only ``bayesian_yolov3_torch``, ``parity_fullres_torch``, torch,
+numpy and the standard library; needs a CUDA device (exits non-zero without
+one) and ``nvcc`` (every kernel is built from ``bayesian_yolov3_torch/csrc``
+in this run).
 
 Phases, each printing one JSON line:
 
@@ -145,11 +147,31 @@ main_path_tools
             and annotate around one training step (the annotation, the CUDA
             kernel events, whether the kernels launched through ctypes
             appear by name)
+parity_short
+            the accuracy-parity flow of parity_fullres_torch.py
+            (eval/parity.py) at its geometry and inputs — bayesian,
+            1024x1920, 10 unfrozen float32 steps with batch-statistics BN
+            through all 52 Darknet convs — then one production bf16 predict
+            (T=30) and one f32 twin pass on those weights: finite losses,
+            every backbone leaf moved, no kernel launched in training (the
+            plain convolutions), the predict's launches (stem 1, res block
+            11, downsample 2, epistemic decode 3, NMS >= 1), finite rows of
+            both; ms a step, peak memory of each part
+entry       bayesian_yolov3_torch/dryrun.py's entry() (256x480, T=8, bf16):
+            its pipeline twice on its example arguments, bit-equal; launches
+dryrun      dryrun_multichip(4): four ranks spawned on the card over
+            gloo through the seven compositions of the JAX package's
+            __graft_entry__.py; every rank ran the moments, finalize, int8
+            epilogue, box decode and NMS kernels
 
 Then the card line, one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
-then exits non-zero and prints no result line.  The multi-rank phases
-start processes (spawned, joined under a timeout) and leave none behind.
+then exits non-zero and prints no result line.  Every run that finds a card
+writes chiprun_out/CHIP_SMOKE.json under the working directory: every phase
+line, each kernel check (its largest deviation from its plain version, the
+tolerance), the card's name and power limit, and the error of a failed run.
+The multi-rank phases start processes (spawned, joined under a timeout) and
+leave none behind.
 """
 
 import contextlib
@@ -170,11 +192,13 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from bayesian_yolov3_torch import dryrun
 from bayesian_yolov3_torch.config import Config, DataConfig
 from bayesian_yolov3_torch.convert import tree_to
 from bayesian_yolov3_torch.core.blueprint import Variant, VariantSpec
 from bayesian_yolov3_torch.core.priors import priors_as_array
 from bayesian_yolov3_torch.data import encode, pipeline, proto, tfrecord
+from bayesian_yolov3_torch.eval import parity as eval_parity
 from bayesian_yolov3_torch.infer.detect import Detector
 from bayesian_yolov3_torch.infer.ecp import bbox_to_ecp_format
 from bayesian_yolov3_torch.infer.runner import InferenceRunner
@@ -184,12 +208,16 @@ from bayesian_yolov3_torch.ops import (
     _build, common, cuda_conv, cuda_decode, cuda_epistemic, cuda_moments, cuda_nms, cuda_quant,
     decode, nms, quant)
 from bayesian_yolov3_torch.ops import loss as loss_ops
+from bayesian_yolov3_torch.ops.launches import read as read_counters
+from bayesian_yolov3_torch.ops.launches import reset as reset_counters
 from bayesian_yolov3_torch.parallel import (
     initialize_distributed, local_rows, make_groups, make_mc_sharded_fused_pipeline)
 from bayesian_yolov3_torch.parallel.mesh import Group
 from bayesian_yolov3_torch.train.checkpoints import CheckpointStore
 from bayesian_yolov3_torch.train import loop as train_loop
 from bayesian_yolov3_torch.train.loop import partition_params
+
+import parity_fullres_torch
 
 # published peaks of one H100 SXM (NVIDIA data sheet): the yardstick of bound_ms
 HBM_BYTES_PER_S = 3.35e12
@@ -224,8 +252,31 @@ CONV_RTOL, CONV_ATOL = 2.0 ** -6, 1e-2
 CONV_MAX_DIFF_SHARE = 0.05  # of elements that differ at all
 
 
+RECORD_PATH = os.path.join("chiprun_out", "CHIP_SMOKE.json")
+_PHASES = []  # every phase line of this run, for the record
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    line = json.dumps({"phase": phase, **kw})
+    _PHASES.append(json.loads(line))
+    print(line, flush=True)
+
+
+def write_record(card, kernels, error):
+    """The run's record at RECORD_PATH (under the working directory): every
+    phase line, each kernel check (its largest deviation from its plain
+    version, the tolerance it was held to and, where the tolerance is a
+    bound on |got - want|, the largest ratio of the deviation to its bound,
+    which the check held <= 1; a check that fails raises, so every check
+    listed passed), the card's name and power limit, and the error that
+    ended a failed run."""
+    os.makedirs(os.path.dirname(RECORD_PATH), exist_ok=True)
+    checks = [{"name": k["name"], "ok": True, "max_dev": k["max_abs_err"],
+               "max_err_over_tolerance": k.get("max_err_over_tolerance"),
+               "tolerance": k["tolerance"], "launches": k.get("launches")} for k in kernels]
+    with open(RECORD_PATH, "w") as f:
+        json.dump({"ok": error is None, "card": card, "args": sys.argv[1:],
+                   "kernel_checks": checks, "phases": _PHASES, "error": error}, f, indent=1)
 
 
 def check(cond, msg):
@@ -307,14 +358,17 @@ def check_epistemic(dev, flush):
             alone = cuda_epistemic.fused_epistemic_decode_cf_batched(
                 raw[:, :, i * h * w:(i + 1) * h * w].contiguous(), priors, **{**kw, "n_imgs": 1})
             check(torch.equal(got[i], alone[0]), f"{name}: image {i} differs from its decode alone")
+        ratio = 0.0  # the largest |got - want| / (atol + rtol |want|) of any column band
         for (lo, hi), rtol, atol in EPI_TOL:
             ok = torch.allclose(got[..., lo:hi], want[..., lo:hi], rtol=rtol, atol=atol)
             check(ok, f"{name} disagrees with its plain version, columns {lo}:{hi} (rtol "
                       f"{rtol}, atol {atol}): max abs "
                       f"{float((got[..., lo:hi] - want[..., lo:hi]).abs().max())}")
+            ratio = max(ratio, float(((got[..., lo:hi] - want[..., lo:hi]).abs()
+                                      / (atol + rtol * want[..., lo:hi].abs())).max()))
         rec = {"shape": [int(v) for v in raw.shape], "n_imgs": nb, "T": t,
                "parts": cuda_epistemic.frame_parts(t, 3, h, w),
-               "max_abs_err": float((got - want).abs().max())}
+               "max_abs_err": float((got - want).abs().max()), "max_err_over_tolerance": ratio}
         if k < 3:  # one image of the main path = these three launches
             nbytes = _decode_bytes(t, nb, h, w, C)
             # per anchor-sample: 4 sums, 10 products+sums, 4+1+C exp, entropies
@@ -348,6 +402,7 @@ def check_epistemic(dev, flush):
         "source": "bayesian_yolov3_torch/csrc/epistemic_decode.cu",
         "replaces": "bayesian_yolov3_tpu/ops/pallas_epistemic.py:62",
         "max_abs_err": max(r["max_abs_err"] for r in per_shape),
+        "max_err_over_tolerance": max(r["max_err_over_tolerance"] for r in per_shape),
         "ms": sum(r["ms"] for r in timed),
         "device_ms": sum(r["device_ms"] for r in timed),
         "plain_ms": sum(r["plain_ms"] for r in timed),
@@ -810,6 +865,7 @@ def check_nms(dev):
         "replaces": "bayesian_yolov3_tpu/ops/pallas_nms.py:156",
         "also_replaces": "bayesian_yolov3_tpu/ops/pallas_nms.py:40",
         "max_abs_err": 0.0,  # indices and counts are exactly equal, or the run fails
+        "tolerance": "exact (indices and counts torch.equal)",
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,
@@ -857,7 +913,8 @@ def _conv_agree(name, got, want):
     share = float((err > 0).float().mean())
     ring = torch.cat([err[:, 0].flatten(), err[:, -1].flatten(),
                       err[:, :, 0].flatten(), err[:, :, -1].flatten()])
-    bad = err > CONV_ATOL + CONV_RTOL * w.abs()
+    allowed = CONV_ATOL + CONV_RTOL * w.abs()
+    bad = err > allowed
     check(not bool(bad.any()),
           f"{name} disagrees with its plain version (rtol {CONV_RTOL}, atol {CONV_ATOL}): "
           f"{int(bad.sum())} elements, max abs {float(err.max())}, border ring max abs "
@@ -865,7 +922,7 @@ def _conv_agree(name, got, want):
     check(share <= CONV_MAX_DIFF_SHARE,
           f"{name}: {share:.4%} of elements differ from the plain version")
     return {"max_abs_err": float(err.max()), "border_max_abs_err": float(ring.max()),
-            "differing_share": share}
+            "max_err_over_tolerance": float((err / allowed).max()), "differing_share": share}
 
 
 def _per_image(name, shapes, counts, **extra):
@@ -883,6 +940,7 @@ def _per_image(name, shapes, counts, **extra):
             "source": f"bayesian_yolov3_torch/csrc/{name}.cu",
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
             "border_max_abs_err": max(s["border_max_abs_err"] for s in shapes),
+            "max_err_over_tolerance": max(s["max_err_over_tolerance"] for s in shapes),
             "differing_share": max(s["differing_share"] for s in shapes),
             **tot, "bound_by": "bytes" if t_bytes >= t_flops else "operations",
             "tolerance": {"rtol": CONV_RTOL, "atol": CONV_ATOL},
@@ -1354,23 +1412,6 @@ def save_checkpoint(cfg, params, stats, step):
     trainable, frozen = partition_params(params, cfg.freeze_darknet53)
     CheckpointStore(cfg.checkpoint_path, cfg.run_id).save(
         step, {"params": trainable, "frozen": frozen, "stats": stats})
-
-
-def reset_counters():
-    cuda_epistemic.launch_count = 0
-    cuda_decode.launch_count = 0
-    cuda_nms.launch_count = 0
-    cuda_quant.launch_count = 0
-    for counts in (cuda_conv.launch_counts, cuda_moments.launch_counts):
-        for name in counts:
-            counts[name] = 0
-
-
-def read_counters():
-    return {"epistemic_decode": cuda_epistemic.launch_count,
-            "box_decode": cuda_decode.launch_count,
-            "greedy_nms": cuda_nms.launch_count, "quant_epilogue": cuda_quant.launch_count,
-            **cuda_conv.launch_counts, **cuda_moments.launch_counts}
 
 
 MC_KERNELS = ("epistemic_moments", "epistemic_finalize")  # the mc path's own
@@ -3848,6 +3889,132 @@ def main_path_tools(tmp, dev, card, json_dir=None, train_pattern=None):
     return out
 
 
+# -- accuracy parity, the entry points, the multi-rank dry run --------------
+
+PARITY_SHORT_STEPS = 10
+# one production predict of one 1024x1920 frame: the fused early backbone
+# (stem, 11 res blocks, 2 downsamples) and the epistemic decode a scale; NMS
+# once, and once more where the certificate fails and the exact retry runs
+PREDICT_LAUNCHES = {"fused_stem": 1, "fused_res_block": 11, "fused_downsample": 2,
+                    "epistemic_decode": 3}
+DRYRUN_RANKS = 4
+# the dry run's float32 compositions on the card: the mc fused pipeline's
+# moments and finalize, its int8 epilogue, the dp batched box decode, NMS
+DRYRUN_KERNELS = ("epistemic_moments", "epistemic_finalize", "quant_epilogue", "box_decode",
+                  "greedy_nms")
+
+
+def _predict_launches(name, launches, nms_launches=None):
+    """One predict's launches: PREDICT_LAUNCHES, no other kernel but NMS,
+    which ran ``nms_launches`` times (None: at least once)."""
+    others = {k: v for k, v in launches.items() if k != "greedy_nms"}
+    check(others == {**dict.fromkeys(others, 0), **PREDICT_LAUNCHES}
+          and (launches["greedy_nms"] >= 1 if nms_launches is None
+               else launches["greedy_nms"] == nms_launches),
+          f"{name}: launches {launches}, want {PREDICT_LAUNCHES} and greedy_nms "
+          f"{nms_launches or '>= 1'}")
+
+
+def _with_peak_gb(fn):
+    """(fn(), peak device memory in GB while it ran)."""
+    out = []
+    gb = _peak_gb(lambda: out.append(fn()))
+    return out[0], gb
+
+
+def parity_short(dev):
+    """The accuracy-parity flow of parity_fullres_torch.py at its geometry
+    and inputs for PARITY_SHORT_STEPS steps: unfrozen float32 training
+    (finite losses, every backbone leaf moved, no kernel launched: the
+    training forward runs the plain convolutions), one production bf16
+    predict (its launches) and one f32 twin pass on those weights (finite
+    rows); ms a step, peak memory."""
+    batch, gt = parity_fullres_torch.inputs(np.random.default_rng(0))
+    cfg = eval_parity.overfit_config(IMG, 1, parity_fullres_torch.N_BOXES)
+    init, _ = yolov3.YoloV3.from_config(cfg).init(torch.Generator().manual_seed(0), dev)
+    losses, events = [], []
+
+    def on_step(i, metrics):
+        losses.append(metrics["total"].detach())
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    reset_counters()
+    t0 = time.time()
+    (params, stats, _), train_gb = _with_peak_gb(lambda: eval_parity.overfit(
+        cfg, batch, PARITY_SHORT_STEPS, dev, on_step=on_step))
+    train_s = time.time() - t0
+    train_launches = read_counters()
+    check(not any(train_launches.values()), f"parity_short training launched {train_launches}")
+    losses = [float(v) for v in losses]
+    check(len(losses) == PARITY_SHORT_STEPS and all(np.isfinite(losses)),
+          f"parity_short losses {losses}")
+    still = [n for (n, a), (_, b) in zip(_named_leaves(init["backbone"]),
+                                          _named_leaves(params["backbone"])) if torch.equal(a, b)]
+    check(not still, f"parity_short: backbone leaves that did not move: {still}")
+    del init
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+    runner = InferenceRunner(parity_fullres_torch.production_config(), device=dev)
+    keys = runner.draw_keys()
+    reset_counters()
+    t1 = time.time()
+    (rows, valid), predict_gb = _with_peak_gb(
+        lambda: runner.predict(params, stats, batch["image"], keys))
+    predict_s = time.time() - t1
+    launches = read_counters()
+    _predict_launches("parity_short predict", launches)
+    t2 = time.time()
+    ref, twin_gb = _with_peak_gb(
+        lambda: eval_parity.reference_twin(params, stats, batch["image"], keys, dev))
+    twin_s = time.time() - t2
+    for name, (r, v) in (("production", (rows[0], valid[0])), ("twin", ref)):
+        check(v.any() and np.isfinite(r[v]).all(), f"parity_short {name}: rows not finite")
+    cmp = eval_parity.compare({0: (rows[0], valid[0])}, {0: ref}, gt, runner.spec, geometry=IMG,
+                              T=T, train_steps=PARITY_SHORT_STEPS)
+    return {"steps": PARITY_SHORT_STEPS, "losses": losses,
+            "ms_per_step_median": float(np.median(step_ms)), "step_ms": step_ms,
+            "peak_mem_GB_train": train_gb, "peak_mem_GB_predict_bf16": predict_gb,
+            "peak_mem_GB_twin_f32": twin_gb, "train_s": train_s, "predict_s": predict_s,
+            "twin_s": twin_s, "train_launches": train_launches, "predict_launches": launches,
+            "backbone_leaves_moved": len(list(_named_leaves(params["backbone"]))),
+            "rows": {"production": int(valid.sum()), "twin": int(ref[1].sum())},
+            **{k: cmp[k] for k in ("mAP_production_bf16", "mAP_reference_f32", "abs_dmAP",
+                                   "matched_confident_detections")}}
+
+
+def entry_phase():
+    """``dryrun.entry()`` on the card: its pipeline called twice on its
+    example arguments, the outputs bit-equal; the first call's launches."""
+    fn, args = dryrun.entry()
+    reset_counters()
+    first = fn(*args)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    _predict_launches("entry", launches, nms_launches=1)
+    again = fn(*args)
+    rows, valid, count = first
+    check(rows.shape == (1000, 23) and valid.dtype == torch.bool and int(count) >= 0
+          and bool(torch.isfinite(rows[valid]).all()), f"entry: rows {tuple(rows.shape)}")
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          "entry: a second call differs from the first")
+    return {"launches": launches, "detections": int(count),
+            "ms": event_ms(lambda: fn(*args), 5)}
+
+
+def dryrun_phase():
+    """``dryrun.dryrun_multichip(DRYRUN_RANKS)`` on the one card over gloo:
+    every rank ran the mc, int8, dp batched and NMS kernels."""
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = dryrun.dryrun_multichip(DRYRUN_RANKS)
+    wall = time.time() - t0
+    for r in ranks:
+        idle = [k for k in DRYRUN_KERNELS if not r["launches"][k]]
+        check(not idle, f"dryrun rank {r['rank']}: no launch of {idle}")
+    return {"wall_s": wall, "ranks": DRYRUN_RANKS, "per_rank": ranks}
+
+
 def _numbers(d):
     """The flat numbers of a phase's result (no nested dicts, lists or flags)."""
     return {k: v for k, v in d.items()
@@ -3860,7 +4027,7 @@ def _peaks(summary):
 
 
 def summarize(main_summary, timings, split, mc, mc2, b_summary, b_timings, gemm, int8, dp, sp,
-              train, train_dp, tools):
+              train, train_dp, tools, short, ent, dry):
     """One compact line of the numbers each phase measured (ms per frame,
     stages, all-reduce, peak memory of every run, launches per frame),
     printed just before the kernels line so that the end of the output
@@ -3933,6 +4100,12 @@ def summarize(main_summary, timings, split, mc, mc2, b_summary, b_timings, gemm,
         "evaluate_detections_mAP": tools["evaluate_detections"]["mAP"],
         "citypersons_wall_s": tools["citypersons"]["wall_s"],
         "trace": tools["trace"]}
+    out["parity_short"] = {k: short[k] for k in (
+        "ms_per_step_median", "peak_mem_GB_train", "peak_mem_GB_predict_bf16",
+        "peak_mem_GB_twin_f32", "train_s", "predict_s", "twin_s", "predict_launches")}
+    out["entry"] = {"ms": ent["ms"], "launches": ent["launches"]}
+    out["dryrun"] = {"wall_s": dry["wall_s"],
+                     "per_rank_s": [r["seconds"] for r in dry["per_rank"]]}
     return out
 
 
@@ -3959,11 +4132,23 @@ def main():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
-    t_start = time.time()
-    dev = torch.device("cuda:0")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    kernels = []  # the kernel checks, as they pass
+    error = None
+    try:
+        return smoke(card, kernels)
+    except BaseException:
+        error = traceback.format_exc()
+        raise
+    finally:
+        write_record(card, kernels, error)
+
+
+def smoke(card, kernels):
+    t_start = time.time()
+    dev = torch.device("cuda:0")
     emit("device", card=card, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda)
 
@@ -3995,12 +4180,14 @@ def main():
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             emit("main_path_tools", **main_path_tools(tmp, dev, card))
         return 0
+    if sys.argv[1:] == ["--parity"]:  # parity_fullres_torch.py alone: no result line
+        return parity_fullres_torch.main([])
 
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)  # > 50 MB L2
-    kernels = [check_epistemic(dev, flush), check_nms(dev), check_stem(dev, flush),
-               check_res_block(dev, flush), check_downsample(dev, flush),
-               check_box_decode(dev, flush), check_epistemic_moments(dev, flush),
-               check_epistemic_finalize(dev, flush), check_quant_epilogue(dev, flush)]
+    kernels.extend([check_epistemic(dev, flush), check_nms(dev), check_stem(dev, flush),
+                    check_res_block(dev, flush), check_downsample(dev, flush),
+                    check_box_decode(dev, flush), check_epistemic_moments(dev, flush),
+                    check_epistemic_finalize(dev, flush), check_quant_epilogue(dev, flush)])
     emit("kernels", card=card, kernels=kernels)
     gemm = int8_gemm(dev, flush)
     emit("int8_gemm", card=card, **gemm)
@@ -4050,6 +4237,14 @@ def main():
                                 train_pattern=os.path.join(tmp, "train_data",
                                                            "train-*-of-*.tfrecord"))
         emit("main_path_tools", seconds=time.time() - t0, **tools)
+    t0 = time.time()
+    short = parity_short(dev)
+    emit("parity_short", card=card, seconds=time.time() - t0, **short)
+    t0 = time.time()
+    ent = entry_phase()
+    emit("entry", card=card, seconds=time.time() - t0, **ent)
+    dry = dryrun_phase()
+    emit("dryrun", card=card, **dry)
 
     # launches: each kernel's count from its own path's run — the epistemic
     # bf16 main path; for box_decode the batched aleatoric bf16 run; for the
@@ -4061,7 +4256,7 @@ def main():
         k["launches"] = path.get(k["name"], launches)[k["name"]]
     emit("summary", card=card, ptxas=ptxas, smoke_wall_s=time.time() - t_start,
          **summarize(summary, timings, split, mc_summary, mc2, b_summary, b_timings, gemm,
-                     int8, dp, sp, train, train_dp, tools))
+                     int8, dp, sp, train, train_dp, tools, short, ent, dry))
     emit("done", seconds=time.time() - t_start)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -75,6 +75,32 @@ def test_conv2d_matches_jax(rng, k, stride, hw):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+# bf16 convolutions: both frameworks round the same bf16 operands' float32
+# sums to bf16, in another order of summation, so an output may differ by
+# one bf16 step (2^-8 relative) where a sum lies on a rounding boundary: two
+# steps relative, and 1e-2 absolute for O(1) outputs that cancelled.
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("hw", [(8, 10), (7, 9), (8, 9)])
+def test_conv2d_tf_same_stride2_matches_jax(rng, hw, k, dtype):
+    """``darknet_pad=False`` at stride 2 is TF SAME: for k=3 on an even side
+    (0, 1), on an odd side (1, 1); for k=1 no pad."""
+    x = rng.standard_normal((2, *hw, 5)).astype(np.float32)
+    w = (rng.standard_normal((k, k, 5, 7)) / np.sqrt(k * k * 5)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(jc.conv2d(jnp.asarray(x, jdt), jnp.asarray(w, jdt), stride=2,
+                                darknet_pad=False).astype(jnp.float32))
+    got = tc.conv2d(torch.from_numpy(x).to(tdt), _hwio_to_oihw(w).to(tdt), stride=2,
+                    darknet_pad=False)
+    assert got.dtype == tdt and got.shape == want.shape
+    assert got.shape[1:3] == (-(-hw[0] // 2), -(-hw[1] // 2))
+    rtol, atol = (RTOL, ATOL) if dtype == "float32" else (BF16_RTOL, BF16_ATOL)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol, atol=atol)
+
+
 def test_conv2d_explicit_asymmetric_padding(rng):
     x = rng.standard_normal((1, 6, 8, 4)).astype(np.float32)
     w = rng.standard_normal((2, 2, 4, 3)).astype(np.float32)

@@ -71,6 +71,27 @@ def test_encode_boxes_matches_jax(rng, n_boxes):
         np.testing.assert_allclose(g["loc"].numpy(), np.asarray(w["loc"]), **LOC_TOL)
 
 
+def test_encode_at_full_resolution_matches_jax():
+    """The accuracy-parity recipe's pedestrian-shaped boxes on the ECP
+    geometry (1024x1920: 32x60, 64x120 and 128x240 cells), where the 64x96
+    tables above have 2x3 cells at the coarsest scale."""
+    import parity_fullres_torch
+
+    full = parity_fullres_torch.FULL
+    jt = je.build_prior_tables(JBlueprint.build(full, J_PRIORS, cls_cnt=2))
+    tt = te.build_prior_tables(TBlueprint.build(full, T_PRIORS, cls_cnt=2))
+    batch, _ = parity_fullres_torch.inputs(np.random.default_rng(0))
+    b, l, v = (batch[k] for k in ("bbox", "label", "valid"))
+    want = jax.vmap(lambda b, l, v: je.encode_boxes(b, l, v, jt))(
+        jnp.asarray(b), jnp.asarray(l), jnp.asarray(v))
+    got = te.encode_boxes(torch.from_numpy(b), torch.from_numpy(l), torch.from_numpy(v), tt)
+    assert sum(int(g["obj"].sum()) for g in got) == 3
+    for s, (g, w) in enumerate(zip(got, want)):
+        for k in ("obj", "ign", "cls"):
+            assert torch.equal(g[k], torch.from_numpy(np.asarray(w[k]))), (s, k)
+        np.testing.assert_allclose(g["loc"].numpy(), np.asarray(w["loc"]), **LOC_TOL)
+
+
 def test_later_box_overwrites_earlier():
     box = np.asarray([0.3, 0.3, 0.6, 0.5], np.float32)
     b = np.zeros((1, M, 4), np.float32)

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: importing every module of
-``bayesian_yolov3_torch`` and ``chip_smoke`` (without running it) pulls in
+``bayesian_yolov3_torch``, ``chip_smoke`` and ``parity_fullres_torch``
+(without running them) pulls in
 neither jax nor orbax nor the JAX package, nor PIL, matplotlib or
 tensorflow, which the card's machine lacks (the tools import them, where at
 all, inside the function that needs them) — checked in a fresh
@@ -20,7 +21,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = sorted(
     m.name for m in pkgutil.walk_packages(bayesian_yolov3_torch.__path__,
                                           "bayesian_yolov3_torch.")
-) + ["chip_smoke"]
+) + ["chip_smoke", "parity_fullres_torch"]
 
 _PROBE = """
 import importlib, json, sys
@@ -73,7 +74,9 @@ def test_every_module_is_listed():
                    "bayesian_yolov3_torch.data.prior_clustering",
                    "bayesian_yolov3_torch.infer.vis", "bayesian_yolov3_torch.infer.plasma",
                    "bayesian_yolov3_torch.cli.vis_uncertainty",
-                   "bayesian_yolov3_torch.infer.qualitative"):
+                   "bayesian_yolov3_torch.infer.qualitative",
+                   "bayesian_yolov3_torch.eval.parity", "bayesian_yolov3_torch.dryrun",
+                   "bayesian_yolov3_torch.ops.launches"):
         assert needed in MODULES
 
 

@@ -126,6 +126,21 @@ def test_conv2d_int8_matches_jax(k, cin, cout):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("nhw", [(1, 2, 3), (2, 2, 4), (1, 1, 17)])
+def test_conv2d_int8_few_rows_matches_jax(nhw):
+    """Fewer rows of the int8 product than the card's minimum of 17 (one
+    sample of a 64x96 image's 2x3 map at stride 32 has 6): zero-padded to
+    17 and the padding dropped, bit for bit against the JAX package."""
+    rng = np.random.default_rng(sum(nhw))
+    x = rng.integers(-127, 128, (*nhw, 16), dtype=np.int8)
+    w = rng.integers(-127, 128, (3, 3, 16, 8), dtype=np.int8)
+    want = np.asarray(j_quant.conv2d_int8(jnp.asarray(x), jnp.asarray(w)))
+    got = p_quant.conv2d_int8(torch.from_numpy(x),
+                              torch.from_numpy(w.transpose(3, 2, 0, 1).copy()))
+    assert got.shape == (*nhw, 8)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("ch", [42, 21, 48])
 def test_detection_product_matches_jax(ch):
     """The int8 detection product (weight rows zero-padded to a multiple of

@@ -241,9 +241,24 @@ def test_step1_grads_match_jax_in_float64(monkeypatch):
     ``aleatoric_loss``, the same float32 GT encoding on both sides.  The
     port is cast by test-time patches: its ``.float()`` casts read as
     ``.double()``, and a float64 compute dtype."""
+    _float64_step1_agrees(monkeypatch, freeze=True)
+
+
+def test_unfrozen_step1_grads_match_jax_in_float64(monkeypatch):
+    """The same witness with the backbone unfrozen (``freeze_darknet53=
+    False``, the accuracy-parity recipe): batch-statistics BN through all 52
+    Darknet convs, and every leaf of the backbone trained, in float64
+    against JAX's ``jax.grad`` at relative L2 <= 1e-10 (in float32 the
+    LeakyReLU kinks of 52 more blocks move the backbone's gradients by ~1e-2
+    between the packages)."""
+    _float64_step1_agrees(monkeypatch, freeze=False)
+
+
+def _float64_step1_agrees(monkeypatch, freeze):
     spec = JSpec(JVariant("aleatoric"), 2)
     params_np, stats_np = tp.numpy_weights(seed=1, spec=spec)
-    jm = JYolo(spec=spec, priors=ECP_9_PRIORS, img_size=IMG, compute_dtype="float64")
+    jm = JYolo(spec=spec, priors=ECP_9_PRIORS, img_size=IMG, compute_dtype="float64",
+               freeze_darknet53=freeze)
     x, gts = _encoded_batch(1)
     gts = list(gts.values())
 
@@ -251,7 +266,7 @@ def test_step1_grads_match_jax_in_float64(monkeypatch):
         monkeypatch.setattr(mod, "jnp", _Float64Names())
     with jax.enable_x64(True):
         f64 = lambda t: jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), t)
-        trainable, frozen = jloop.partition_params(f64(tp.to_jax(params_np)), True)
+        trainable, frozen = jloop.partition_params(f64(tp.to_jax(params_np)), freeze)
 
         def loss_fn(trainable, frozen, stats, imgs, gts):
             params = jloop.merge_params(trainable, frozen)
@@ -266,13 +281,13 @@ def test_step1_grads_match_jax_in_float64(monkeypatch):
 
     monkeypatch.setattr(torch.Tensor, "float", torch.Tensor.double)
     monkeypatch.setitem(tyolo._DTYPES, "float64", torch.float64)
-    cfg = _config("aleatoric", True)
+    cfg = _config("aleatoric", True, freeze_darknet53=freeze)
     model = tloop.YoloV3.from_config(cfg)
     model.compute_dtype = "float64"
     step, _, _ = tloop.make_train_step(model, cfg, None)
     params, stats = tp.to_torch(params_np, stats_np)
     as64 = lambda t: {k: as64(v) for k, v in t.items()} if isinstance(t, dict) else t.double()
-    trainable, frozen = tloop.partition_params(as64(params), True)
+    trainable, frozen = tloop.partition_params(as64(params), freeze)
     for leaf in tloop.leaves(trainable):
         leaf.requires_grad_(True)
     total, _ = step.loss_fn(trainable, frozen, as64(stats), torch.from_numpy(x).double(),
@@ -286,10 +301,112 @@ def test_step1_grads_match_jax_in_float64(monkeypatch):
     got, _ = convert.params_to_jax(tree_of(trainable), {})
     names = [n for n, _, _ in _pairs(jgrads, got)]
     assert len(names) == len(grads)
+    assert freeze or sum(n.startswith("backbone/") for n in names) == 156  # 52 x (w, gamma, beta)
     for name, w, g in _pairs(jgrads, got):
         assert g.dtype == w.dtype == np.float64, name
-        rel = _rel_l2(g, w)  # 6e-14 at most
+        rel = _rel_l2(g, w)  # 6e-14 at most frozen, 1.3e-13 unfrozen
         assert rel <= 1e-10, f"{name}: relative L2 {rel:.2e}"
+
+
+class _NumpyFloat64Names:
+    """``numpy`` with ``float32`` read as ``float64``: the port's Adam takes
+    its bias corrections in float32, as optax does on float32 parameters;
+    read through this, in float64, as optax does on float64 ones."""
+
+    float32 = np.float64
+
+    def __getattr__(self, name):
+        return getattr(np, name)
+
+
+RECIPE_LR = 3e-3  # the accuracy-parity recipe's (eval/parity.py:overfit_config)
+RECIPE_F64_STEPS = 4
+
+
+def test_unfrozen_adam_steps_match_jax_in_float64(monkeypatch):
+    """The accuracy-parity recipe's training against JAX's, step after step,
+    in float64: the bayesian variant with the aleatoric loss, the backbone
+    unfrozen (batch-statistics BN through all 52 Darknet convs, the moving
+    statistics carried from step to step), hash dropout with each step's own
+    15 keys, Adam at the recipe's lr 3e-3 over every leaf — RECIPE_F64_STEPS
+    steps of ``apply`` on one fixed batch, as the recipe repeats its batch.
+    Every step's loss at rtol 1e-8; after the last step every parameter
+    leaf and every BN statistic at relative L2 <= 1e-8 of optax's and JAX's
+    (measured: 3.3e-11 at most) — float32's own rounding is 6e-8.  Both packages are cast to float64 as in
+    ``test_step1_grads_match_jax_in_float64``."""
+    spec = JSpec(JVariant("bayesian"), 2)
+    params_np, stats_np = tp.numpy_weights(seed=1, spec=spec)
+    jm = JYolo(spec=spec, priors=ECP_9_PRIORS, img_size=IMG, compute_dtype="float64",
+               freeze_darknet53=False)
+    x, gts = _encoded_batch(1)
+    gts = list(gts.values())
+    kds = [jax.random.PRNGKey(100 + i) for i in range(RECIPE_F64_STEPS)]
+    port_keys = [np.asarray([[int(jax.random.bits(k, (), jnp.uint32))
+                              for k in jax.random.split(kd, 15)]], np.uint32) for kd in kds]
+
+    for mod in (jcommon, jdec, jloss, jdarknet):
+        monkeypatch.setattr(mod, "jnp", _Float64Names())
+    with jax.enable_x64(True):
+        f64 = lambda t: jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), t)
+        trainable, frozen = jloop.partition_params(f64(tp.to_jax(params_np)), False)
+        stats = f64(tp.to_jax(stats_np))
+
+        def loss_fn(trainable, frozen, stats, imgs, gts, rng):
+            params = jloop.merge_params(trainable, frozen)
+            raws, new_stats = jm.forward(params, stats, imgs, training=True, rng=rng)
+            dets = [jdec.split_detection(raw, spec) for raw in raws]
+            return jloss.total_loss(dets, gts, params, True)[0], new_stats
+
+        grad_fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+        opt = optax.adam(RECIPE_LR)
+        ostate = opt.init(trainable)
+        jx, jgts = jnp.asarray(x, jnp.float64), [tp.to_jax(g) for g in gts]
+        jlosses = []
+        for kd in kds:
+            (total, stats), grads = grad_fn(trainable, frozen, stats, jx, jgts, kd)
+            upd, ostate = opt.update(grads, ostate, trainable)
+            trainable = optax.apply_updates(trainable, upd)
+            jlosses.append(float(total))
+        jparams, jstats = _tree_np(trainable), _tree_np(stats)
+
+    monkeypatch.setattr(torch.Tensor, "float", torch.Tensor.double)
+    monkeypatch.setitem(tyolo._DTYPES, "float64", torch.float64)
+    monkeypatch.setattr(tloop, "np", _NumpyFloat64Names())
+    monkeypatch.setattr(tloop, "dropout_keys", lambda seed, step: port_keys[step])
+    cfg = _config("bayesian", True, freeze_darknet53=False)
+    cfg.lr = RECIPE_LR
+    model = tloop.YoloV3.from_config(cfg)
+    model.compute_dtype = "float64"
+    step, _, opt = tloop.make_train_step(model, cfg, None)
+    params, stats = tp.to_torch(params_np, stats_np)
+    as64 = lambda t: {k: as64(v) for k, v in t.items()} if isinstance(t, dict) else t.double()
+    trainable, frozen = tloop.partition_params(as64(params), False)
+    for leaf in tloop.leaves(trainable):
+        leaf.requires_grad_(True)
+    state = {"params": trainable, "frozen": frozen, "stats": as64(stats),
+             "opt": opt.init(trainable), "step": 0}
+    imgs = torch.from_numpy(x).double()
+    pgts = [{k: torch.from_numpy(np.array(v)) for k, v in g.items()} for g in gts]
+    losses = []
+    for _ in range(RECIPE_F64_STEPS):
+        state, metrics = step.apply(state, imgs, pgts)
+        losses.append(float(metrics["total"]))
+    # measured: 1e-15 at step 1, 1.8e-10 at step 4 (Adam divides each
+    # element's moment by its own root: a gradient near eps carries its
+    # rounding into the step at full weight, and the next forward feels it)
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-8)
+    assert state["opt"]["count"] == RECIPE_F64_STEPS
+    got_p, got_s = convert.params_to_jax(tloop.detached(state["params"]), state["stats"])
+    n_backbone = 0
+    for kind, want, got in (("params", jparams, got_p), ("stats", jstats, got_s)):
+        names = [n for n, _, _ in _pairs(want, got)]
+        assert len(names) == len(list(_pairs(got, want))), kind
+        for name, w, g in _pairs(want, got):
+            assert g.dtype == w.dtype == np.float64, name
+            rel = _rel_l2(g, w)
+            assert rel <= 1e-8, f"{kind} {name}: relative L2 {rel:.2e}"
+            n_backbone += name.startswith("backbone/")
+    assert n_backbone == 52 * 3 + 52 * 2  # every conv's (w, gamma, beta) and (mean, var)
 
 
 def test_three_adam_steps_match_jax(case, injected_keys):
