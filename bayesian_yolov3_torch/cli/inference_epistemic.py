@@ -24,7 +24,7 @@ The T samples of each image split over N cards, one process per card:
 unless ``--device`` names another device; every rank reads every frame;
 rank 0 logs progress and writes the JSON.)  The image rows split over N
 cards, one band per card, with a one-row halo exchange around every 3x3
-conv (H a multiple of 32 x N; less device memory per card):
+conv (H a multiple of 32, any N; less device memory per card):
 
     torchrun --nproc_per_node N -m bayesian_yolov3_torch.cli.inference_epistemic \
         --set mesh_shape='{"sp": N}' ...

@@ -24,7 +24,7 @@ rows are gathered, rank 0 writes the JSON; composes with int8):
         --set mesh_shape='{"dp": N}' --set run_id=... --set data.file_pattern=...
 
 or the image rows, one band per card with a one-row halo exchange around
-every 3x3 conv (H a multiple of 32 x N): ``--set mesh_shape='{"sp": N}'``.
+every 3x3 conv (H a multiple of 32, any N): ``--set mesh_shape='{"sp": N}'``.
 Each rank computes on ``cuda:{LOCAL_RANK}`` over NCCL unless ``--device``
 names another device.
 """

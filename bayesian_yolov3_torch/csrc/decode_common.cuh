@@ -2,14 +2,24 @@
 // epistemic_moments.cu, epistemic_finalize.cu, box_decode.cu), so that each
 // kernel evaluates the same expressions.  Compile WITHOUT --use_fast_math:
 // expf/logf and the division keep their IEEE semantics, which the
-// saturated-probability entropies rely on.
+// saturated-probability entropies rely on.  NaN and inf pass through as
+// through the plain versions (torch.special.xlogy, torch.softmax): an
+// overflowing size logit decodes to an infinite box side, a NaN class logit
+// to NaN probabilities and entropies.
 #pragma once
 
 #include <math.h>
 
+// x log x as torch.special.xlogy(p, p): exactly 0 at p == 0, NaN at NaN.
+// (The JAX package's Pallas kernels take 0 wherever p > 0 fails, NaN
+// included; its XLA path and the plain versions give NaN.)
 __device__ __forceinline__ float xlogx(float p) {
-  return p > 0.0f ? p * logf(p) : 0.0f;  // exactly 0 at p <= 0
+  return p == 0.0f ? 0.0f : p * logf(p);
 }
+
+// max that passes NaN on, as torch.max does (fmaxf returns the operand that
+// is not NaN)
+__device__ __forceinline__ float max_nan(float a, float b) { return (a > b || a != a) ? a : b; }
 
 __device__ __forceinline__ float logistic_entropy(float p) {
   return -(xlogx(p) + xlogx(1.0f - p));
@@ -24,7 +34,7 @@ template <int C>
 __device__ __forceinline__ void softmax_inplace(float (&v)[C]) {
   float vmax = v[0];
 #pragma unroll
-  for (int c = 1; c < C; ++c) vmax = fmaxf(vmax, v[c]);
+  for (int c = 1; c < C; ++c) vmax = max_nan(vmax, v[c]);
   float denom = 0.f;
 #pragma unroll
   for (int c = 0; c < C; ++c) {

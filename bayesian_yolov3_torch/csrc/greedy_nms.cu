@@ -10,7 +10,11 @@
 // thresh (strict) against the pick is suppressed; IoU = inter / ((area_c +
 // area_p) - inter) with areas clamped at 0, so a zero-area pair gives NaN,
 // which compares False and keeps the candidate.  At most max_out picks, in
-// selection order.  Scores and coordinates must not be NaN.
+// selection order.  NaN passes through the IoU as through the plain version's
+// torch.maximum / torch.minimum / clamp (and jnp.maximum / jnp.minimum of the
+// JAX package): a NaN corner makes every IoU with its box NaN, so that box
+// suppresses nothing and nothing suppresses it.  A NaN score sorts first and
+// ends the scan (the plain loop's max is NaN there): no pick.
 //
 // Formulation.  The wrapper sorts the candidates by (score desc, index asc)
 // (ops/cuda_nms.py).  Greedy argmax is then a scan in that order: a candidate
@@ -22,11 +26,12 @@
 //                bitmask, NMS_CHUNK x NMS_CHUNK/64 words of 64 bits, rows of
 //                suppressed candidates skipped (the scan never reads them);
 //   scan         (one warp per image)  walks the chunk in order, 64
-//                candidates a word: alive = valid & ~(removed | presuppressed);
+//                candidates a word: alive = live & ~(removed | presuppressed),
+//                live = the candidates before the first invalid one;
 //                the first alive one is kept and its row's bits in this word
 //                clear the candidates it suppresses; after the word, the kept
 //                rows' later words are ORed into `removed`.  It stops at
-//                max_out picks or at the first -inf.
+//                max_out picks or at the first -inf or NaN score.
 // A per-image done flag in device memory makes every later kernel of that
 // image return at once, so the host enqueues all chunks without a sync.
 //
@@ -35,9 +40,12 @@
 // gone: the IoU work spreads over all SMs, and the serial part is one warp
 // doing a bit scan plus one L2 read of a mask row per kept box.
 // Exactness: the IoU is the plain version's expression with round-to-nearest
-// intrinsics (no FMA contraction); fmaxf / fminf / fadd are commutative for
-// non-NaN inputs, so the (row, column) IoU equals the (pick, candidate) IoU
-// of the plain loop bit for bit.  Compile WITHOUT --use_fast_math.
+// intrinsics (no FMA contraction); max_nan / min_nan / fadd are commutative
+// up to the sign of a zero and the payload of a NaN, neither of which moves
+// a comparison, so the (row, column) IoU compares as the (pick, candidate)
+// IoU of the plain loop.  (fmaxf / fminf return the operand that is not NaN:
+// with a NaN corner they gave a finite IoU where the plain version's is NaN,
+// and another pick.)  Compile WITHOUT --use_fast_math.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,16 +57,20 @@
 
 typedef unsigned long long u64;
 
+// max and min that pass NaN on, as torch.maximum / torch.minimum do
+__device__ __forceinline__ float max_nan(float a, float b) { return (a > b || a != a) ? a : b; }
+__device__ __forceinline__ float min_nan(float a, float b) { return (a < b || a != a) ? a : b; }
+
 __device__ __forceinline__ float clamped_area(const float4 b) {
-  return __fmul_rn(fmaxf(__fsub_rn(b.z, b.x), 0.0f), fmaxf(__fsub_rn(b.w, b.y), 0.0f));
+  return __fmul_rn(max_nan(__fsub_rn(b.z, b.x), 0.0f), max_nan(__fsub_rn(b.w, b.y), 0.0f));
 }
 
 __device__ __forceinline__ float iou(const float4 a, float area_a, const float4 b,
                                      float area_b) {
-  const float iy0 = fmaxf(a.x, b.x), ix0 = fmaxf(a.y, b.y);
-  const float iy1 = fminf(a.z, b.z), ix1 = fminf(a.w, b.w);
-  const float inter = __fmul_rn(fmaxf(__fsub_rn(iy1, iy0), 0.0f),
-                                fmaxf(__fsub_rn(ix1, ix0), 0.0f));
+  const float iy0 = max_nan(a.x, b.x), ix0 = max_nan(a.y, b.y);
+  const float iy1 = min_nan(a.z, b.z), ix1 = min_nan(a.w, b.w);
+  const float inter = __fmul_rn(max_nan(__fsub_rn(iy1, iy0), 0.0f),
+                                max_nan(__fsub_rn(ix1, ix0), 0.0f));
   return __fdiv_rn(inter, __fsub_rn(__fadd_rn(area_a, area_b), inter));
 }
 
@@ -157,11 +169,16 @@ nms_scan(const float4* __restrict__ sboxes, const float* __restrict__ sscores,
     const uint32_t lo = __ballot_sync(0xffffffffu, q0 < len && sc[q0] > -INFINITY);
     const uint32_t hi = __ballot_sync(0xffffffffu, q1 < len && sc[q1] > -INFINITY);
     const u64 valid = ((u64)hi << 32) | lo;
+    // the scan ends at the first candidate that is not valid: past K, a -inf
+    // score (sorted last), or a NaN score (sorted first: no pick, as the
+    // plain loop, whose max is then NaN); only the candidates before it live
+    const u64 invalid = ~valid;
+    const u64 live = invalid ? (invalid & (0ull - invalid)) - 1ull : ~0ull;
     const u64 presup = ((u64)pw[2 * g + 1] << 32) | pw[2 * g];
     // diagonal words; rows never computed (suppressed, past K) are never used
     const u64 diag_lo = rows[(size_t)q0 * NMS_WORDS + g];
     const u64 diag_hi = rows[(size_t)q1 * NMS_WORDS + g];
-    u64 cand = valid & ~(shfl64(g < 32 ? rem_lo : rem_hi, g & 31) | presup);
+    u64 cand = live & ~(shfl64(g < 32 ? rem_lo : rem_hi, g & 31) | presup);
     u64 keep = 0ull;
     const int before = count;
     while (cand) {

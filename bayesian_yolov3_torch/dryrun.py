@@ -23,9 +23,9 @@ APIs, the seven compositions of the JAX package's ``__graft_entry__.py``:
 7. sp x mc through ``InferenceRunner.predict`` to ECP dicts, then dp
    batched inference (aleatoric, 2n images) over ``{'dp': n}``.
 
-An sp axis needs the image height to be a multiple of 32 x its size
-(``parallel.spatial.check_height``), so the sp compositions take the
-smallest such height of at least 64 rows: 64 up to sp = 2, 128 at sp = 4.
+The sp compositions take the 64 rows of the other compositions, as the JAX
+package's entry does: at sp = 4 that is bands of 1, 1, 0 and 0 rows of the
+stride-32 map (``parallel.spatial.band_plan``), two ranks idle.
 On ``device="cuda"`` rank r computes on card r mod the card count (every
 rank on the one card of a one-card machine); gloo carries the collectives
 through the host.  Prints one ``dryrun_multichip OK ...`` line.
@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import tempfile
 import time
@@ -98,11 +97,6 @@ def entry(device="cuda"):
     image = np.random.default_rng(0).uniform(0, 1, (1, *ENTRY_IMG)).astype(np.float32)
     return pipeline, (params, stats, torch.from_numpy(image).to(device),
                       _fixed_key_table(1, ENTRY_T))
-
-
-def _sp_height(sp: int) -> int:
-    """The smallest multiple of 32 x sp of at least DRY_IMG's 64 rows."""
-    return 32 * sp * math.ceil(DRY_IMG[0] / (32 * sp))
 
 
 def _check(cond, msg):
@@ -180,7 +174,7 @@ def _compositions(n: int, dev: torch.device) -> dict:
     out["mc_int8_detections"] = int(valid_q.sum())
 
     # 5. the sp forward over all n ranks
-    h_sp = _sp_height(n)
+    h_sp = DRY_IMG[0]
     img_sp = torch.from_numpy(np.random.default_rng(6).integers(
         0, 256, (1, h_sp, DRY_IMG[1], 3), dtype=np.uint8)).to(dev).float() / 255.0
     raws_sp = spatial_forward_raws(params, stats, img_sp, torch.Generator().manual_seed(6),
@@ -192,7 +186,7 @@ def _compositions(n: int, dev: torch.device) -> dict:
     out["sp_image_rows"] = h_sp
 
     # 6. sp x mc raws: each rank its band and half of the T2 samples
-    T2, h_spmc = 4, _sp_height(n // 2)
+    T2, h_spmc = 4, DRY_IMG[0]
     groups = make_groups({"sp": n // 2, "mc": 2})
     img_spmc_u8 = np.random.default_rng(7).integers(0, 256, (1, h_spmc, DRY_IMG[1], 3),
                                                     dtype=np.uint8)

@@ -17,7 +17,9 @@ weights.  This module is the harness that shows it, at any geometry:
        reference's inference_epistemic.py.
 3. ``score`` and ``compare``: AP / LAMR of both against the ground truth
    (``eval.detection_metrics``), and the variance columns of matched
-   detections.
+   detections; ``compare_orientations`` scores the served image and its
+   mirror image (``mirrored``, the other orientation that the training's
+   flip draws) pooled, with each orientation's result beside.
 
 The dropout masks are a hash of (key, flat index) (``ops.common.hash_keep``),
 so with one key table both pipelines draw the same masks: they differ in
@@ -46,6 +48,7 @@ MATCH_SCORE = 0.5  # and counts only when confident
 DMAP_BOUND = 1e-3  # the contract's |dmAP|
 NONVACUOUS_MAP = 0.05  # the twin must detect for the comparison to mean anything
 MAX_OUT = 64  # boxes kept by either pipeline's NMS
+ORIENTATIONS = ("served", "mirrored")  # image b of a scored set is ORIENTATIONS[b]
 
 
 def overfit_config(img_size, batch_size: int, n_boxes: int) -> Config:
@@ -190,3 +193,22 @@ def compare(prod: Dict, ref: Dict, gt: Dict, spec, *, geometry, T: int,
         "nonvacuous": bool(m_ref["mAP"] > NONVACUOUS_MAP and n_matched >= 1),
         "pass": bool(delta <= DMAP_BOUND),
     }
+
+
+def mirrored(image_u8, boxes):
+    """An (N, H, W, 3) image batch flipped along its width, and its [y0, x0,
+    y1, x1] boxes with x -> 1 - x (``data.augment.flip_lr``): the image in
+    the other orientation that the training's flip draws."""
+    b = np.asarray(boxes)
+    flipped = np.stack([b[..., 0], 1.0 - b[..., 3], b[..., 2], 1.0 - b[..., 1]], axis=-1)
+    return np.ascontiguousarray(np.asarray(image_u8)[:, :, ::-1]), flipped.astype(b.dtype)
+
+
+def compare_orientations(prod: Dict, ref: Dict, gt: Dict, spec, **kw) -> Dict:
+    """``compare`` of the pooled images ({b: ...}, image b in orientation
+    ``ORIENTATIONS[b]``), with each orientation's own ``compare`` under
+    ``by_orientation``; ``nonvacuous`` and ``pass`` are the pooled set's."""
+    out = compare(prod, ref, gt, spec, **kw)
+    out["by_orientation"] = {ORIENTATIONS[b]: compare({b: prod[b]}, {b: ref[b]}, {b: gt[b]},
+                                                      spec, **kw) for b in sorted(prod)}
+    return out

@@ -49,7 +49,8 @@ drawing the same keys; only rank 0 writes JSON:
   retry.  ``{'sp': a, 'mc': b}`` (epistemic) also splits the T samples:
   the gathered raws of the rank's T/b samples go through the fused mc
   pipeline's back half (moments, one all-reduce over the mc subgroup, one
-  finalize).  Epistemic sp is batch 1; H must be a multiple of 32 x a.
+  finalize).  Epistemic sp is batch 1; H must be a multiple of 32
+  (GSPMD's uneven bands, ``parallel.spatial.band_plan``).
 
 An axis of size 1 is the single-device path.  The refusals follow the JAX
 runner's, with its exception types.

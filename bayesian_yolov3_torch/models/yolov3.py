@@ -123,7 +123,8 @@ def _walk_heads(dn_out, skip16, skip8, site_keys: Optional[np.ndarray], block):
 
     def stacked(t: torch.Tensor) -> torch.Tensor:
         # one copy of a backbone activation per MC sample, sample-major
-        return t if T == 1 else t.unsqueeze(0).expand(T, *t.shape).reshape(-1, *t.shape[1:])
+        return t if T == 1 else t.unsqueeze(0).expand(T, *t.shape).reshape(T * t.shape[0],
+                                                                            *t.shape[1:])
 
     def run_block(name, x, drop):
         nonlocal site

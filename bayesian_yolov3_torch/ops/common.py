@@ -298,7 +298,7 @@ def detection_conv_cf(params: Dict, feats: torch.Tensor, *, compute_dtype=torch.
         # CPU: no mixed-type product; bf16 x bf16 products are exact in float32
         out = torch.matmul(kernel.float(), x.float().t())
     out = out + params["b"].float()[:, None]
-    return out.reshape(-1, t, m)
+    return out.reshape(out.shape[0], t, m)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

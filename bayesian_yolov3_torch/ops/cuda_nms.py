@@ -13,9 +13,9 @@ bitmask spread over all SMs, then one warp scans the chunk's bits.
 the CPU tests can hold it against the greedy loop at a small chunk.
 
 Selection rules (every version, index for index): suppress IoU > thresh
-(strict); a NaN IoU (zero-area boxes) keeps the candidate alive; ties go to
-the lower index; a -inf score is never picked.  Scores and coordinates must
-not be NaN.
+(strict); a NaN IoU (zero-area or infinite boxes, a NaN corner) keeps the
+candidate alive; ties go to the lower index; a -inf score is never picked;
+a NaN score ends the selection (no pick), as in the JAX package.
 
 On a CUDA tensor the wrapper launches the kernels or raises; the plain
 version runs only for tensors that lie on the CPU (and where a caller asks
@@ -84,8 +84,9 @@ def greedy_nms_plain(boxes, scores, max_out: int = 1000,
         ok = m > neg_inf
         if not bool(ok.any()):
             break
-        # lowest index among the maximal scores
-        idx = torch.where(masked == m[:, None], ids, k).min(dim=1).values
+        # lowest index among the maximal scores (any index where the max is
+        # NaN, an image whose step is void)
+        idx = torch.where(masked == m[:, None], ids, k).min(dim=1).values.clamp(max=k - 1)
         b = boxes[img, idx]  # (NB, 4)
         iy0 = torch.maximum(y0, b[:, 0:1])
         ix0 = torch.maximum(x0, b[:, 1:2])

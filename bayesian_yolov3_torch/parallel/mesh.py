@@ -130,7 +130,9 @@ class Group:
         the next rank's ``first`` — with None past either end of the axis
         (and for ``next_first`` when ``first`` is None).  One all-gather of
         the edges within the group: NCCL and gloo both take it for CUDA
-        tensors, where gloo has no point-to-point send for them."""
+        tensors, where gloo has no point-to-point send for them.  Every rank
+        of the group takes part, an sp rank with an empty band too (it
+        offers zero rows of the edges' shape: ``parallel.spatial.Band``)."""
         edges = last[None] if first is None else torch.stack([first, last])
         got = self.all_gather(edges[None], dim=0)  # (size, 1 or 2, ...)
         prev_last = got[self.rank - 1, -1] if self.rank > 0 else None

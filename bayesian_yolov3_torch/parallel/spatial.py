@@ -2,16 +2,24 @@
 group: the ``sp`` axis.
 
 PyTorch counterpart of the JAX package's ``parallel/spatial.py``.  Each of
-the N ranks of an ``sp`` group holds one band of H/N image rows, and every
-map below it holds the same band of its own rows: at stride s, rows
-[r*H/(s*N), (r+1)*H/(s*N)) on rank r.  The activations a rank holds shrink
-by N; the weights are whole on every rank.  Where GSPMD inserts the halo
-collectives for the JAX package, here every 3x3 conv block asks for them
-(``Band.conv``, called by ``ops.common.conv_block``):
+the N ranks of an ``sp`` group holds one band of image rows, and every map
+below it holds the same band of its own rows.  The bands follow GSPMD's
+rule for an uneven shard, on the grid of the coarsest map (stride 32):
+with R = H/32 coarse rows and ``per`` = ceil(R/N), rank r holds coarse rows
+[r*per, min((r+1)*per, R)), and at stride s the 32/s times as many rows
+under them, so every band is a whole number of coarse rows and stays
+aligned at every stride.
+The non-empty bands come first; when N*per > R the last ranks hold empty
+bands and idle through the convs (they still take part in every
+collective).  The activations a rank holds shrink by about N; the weights
+are whole on every rank.  Where GSPMD inserts the halo collectives for the
+JAX package, here every 3x3 conv block asks for them (``Band.conv``,
+called by ``ops.common.conv_block``):
 
 * a stride-1 3x3 conv takes the previous rank's last row and the next
-  rank's first row (zeros at the image's top and bottom edge), stacks them
-  around its band, and convolves with no vertical padding;
+  rank's first row (zeros at the image's top and bottom edge, and from an
+  empty band, which offers zero rows), stacks them around its band, and
+  convolves with no vertical padding;
 * a stride-2 3x3 darknet conv (explicit (1, 1) pad, then VALID): rank r's
   outputs [a, b) read input rows 2a-1 .. 2b-1, so it takes the previous
   rank's last row alone (zeros at the top edge) and no bottom row;
@@ -26,60 +34,103 @@ rows of the single-device masks exactly.
 Decode and NMS are global (NMS is sequential over all anchors), so the
 channels-first raw heads, (ch, NB, h_loc*w) per scale, are all-gathered
 over the group along their last dim — rank order is row order — before the
-decode kernels.
+decode kernels; an uneven band is padded to ``per`` coarse rows for the
+gather (gloo gathers equal shapes) and trimmed after it.
 
-Shards: H must be a multiple of 32*N, so every rank holds an equal band at
-every stride; anything else raises ``ValueError`` (GSPMD pads uneven
-shards instead).
+Shards: H must be a multiple of 32 (the coarsest map's stride); any N.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..models.yolov3 import _key_table, forward_cf, mc_forward_cf
 from ..ops.common import conv2d
 from .mesh import Group, local_rows
 
-STRIDE = 32  # the coarsest map's stride: each rank holds >= 1 of its rows
+STRIDE = 32  # the coarsest map's stride: the bands are whole rows of it
 
 
 def check_height(height: int, n: int) -> None:
-    if height % (STRIDE * n):
-        raise ValueError(
-            f"image height {height} must be a multiple of {STRIDE} x sp ({STRIDE * n}), so "
-            f"that every sp rank holds an equal band of every map")
+    if height % STRIDE or height < STRIDE:
+        raise ValueError(f"image height {height} must be a positive multiple of {STRIDE}, the "
+                         f"coarsest map's stride, to split over sp ({n})")
+
+
+class BandPlan(NamedTuple):
+    """The bands of an ``sp`` axis over the stride-32 grid: ``coarse`` rows
+    of it, ``per`` = ceil(coarse / N) a rank at most, and rank r's first
+    coarse row and count (``start[r]``, ``size[r]``; 0 rows for the empty
+    bands at the end)."""
+
+    coarse: int
+    per: int
+    start: Tuple[int, ...]
+    size: Tuple[int, ...]
+
+
+def band_plan(height: int, n: int) -> BandPlan:
+    """GSPMD's shards of ``height`` image rows over ``n`` ranks, in rows of
+    the stride-32 map: rank r holds [r*per, min((r+1)*per, R))."""
+    check_height(height, n)
+    coarse = height // STRIDE
+    per = -(-coarse // n)
+    start = tuple(min(r * per, coarse) for r in range(n))
+    size = tuple(min(r * per + per, coarse) - a for r, a in enumerate(start))
+    return BandPlan(coarse, per, start, size)
 
 
 class Band:
     """This rank's band of image rows on an ``sp`` group: the hooks that
-    ``ops.common.conv_block`` calls for the halo rows and the mask origin."""
+    ``ops.common.conv_block`` calls for the halo rows and the mask origin.
+    ``rows`` fixes the plan from the image batch."""
 
     def __init__(self, group: Group):
         self.group = group
+        self.plan = None
+        self.width = None  # image columns: a map's width gives its stride
 
     def rows(self, imgs: torch.Tensor) -> torch.Tensor:
         """The rank's band of an (NB, H, W, C) image batch."""
-        check_height(imgs.shape[1], self.group.size)
-        per = imgs.shape[1] // self.group.size
-        return imgs[:, self.group.rank * per:(self.group.rank + 1) * per]
+        self.plan = band_plan(imgs.shape[1], self.group.size)
+        self.width = imgs.shape[2]
+        a = self.plan.start[self.group.rank] * STRIDE
+        return imgs[:, a:a + self.plan.size[self.group.rank] * STRIDE]
+
+    def _scale(self, w: int) -> int:
+        """Rows of a map ``w`` columns wide in one row of the stride-32 map."""
+        return STRIDE * w // self.width
 
     def origin(self, h: int):
-        """(first row, whole height) of a band h rows high."""
-        return self.group.rank * h, self.group.size * h
+        """(first row, whole height) of the band's h rows of a map; (0, 0)
+        for an empty band."""
+        size = self.plan.size[self.group.rank]
+        if size == 0:
+            return 0, 0
+        f = h // size
+        return self.plan.start[self.group.rank] * f, self.plan.coarse * f
 
     def conv(self, x: torch.Tensor, w: torch.Tensor, *, stride: int = 1) -> torch.Tensor:
         """``ops.common.conv2d`` of the band, with the halo rows of its
-        neighbours in place of the zero padding rows."""
+        neighbours in place of the zero padding rows.  An empty band offers
+        zero edge rows to the exchange and returns an empty map."""
         k = w.shape[2]
+        empty = x.shape[1] == 0
+        if k == 3 and stride in (1, 2):
+            edge = x.new_zeros((x.shape[0], *x.shape[2:])) if empty else None
+            prev_last, next_first = self.group.exchange_edges(
+                None if stride == 2 else (edge if empty else x[:, 0]),
+                edge if empty else x[:, -1])
+        elif k != 1:
+            raise ValueError(f"no halo rule for a {k}x{k} conv at stride {stride}")
+        if empty:
+            cols = x.shape[2] if k == 1 else (x.shape[2] - 1) // stride + 1
+            return x.new_zeros((x.shape[0], 0, cols, w.shape[0]))
         if k == 1:
             return conv2d(x, w, stride=stride)
-        if k != 3 or stride not in (1, 2):
-            raise ValueError(f"no halo rule for a {k}x{k} conv at stride {stride}")
-        prev_last, next_first = self.group.exchange_edges(
-            x[:, 0] if stride == 1 else None, x[:, -1])
         zero = x.new_zeros(x[:, :1].shape)
         parts = [zero if prev_last is None else prev_last[:, None], x]
         if stride == 1:
@@ -88,9 +139,20 @@ class Band:
 
     def gather(self, outs):
         """[(raw_cf (ch, M, h_loc*w), (h_loc, w)), ...] of every rank ->
-        the whole maps' [(raw_cf (ch, M, h*w), (h, w)), ...] on every rank."""
-        return [(self.group.all_gather(raw_cf, dim=-1), (h * self.group.size, w))
-                for raw_cf, (h, w) in outs]
+        the whole maps' [(raw_cf (ch, M, h*w), (h, w)), ...] on every rank.
+        A band shorter than ``per`` rows of the stride-32 map is padded for
+        the all-gather (gloo gathers equal shapes) and trimmed after it."""
+        plan = self.plan
+        out = []
+        for raw_cf, (_, w) in outs:
+            f = self._scale(w)
+            full = plan.per * f * w
+            got = self.group.all_gather(F.pad(raw_cf, (0, full - raw_cf.shape[-1])), dim=-1)
+            if min(plan.size) < plan.per:
+                got = torch.cat([got[..., r * full:r * full + c * f * w]
+                                 for r, c in enumerate(plan.size)], dim=-1)
+            out.append((got, (plan.coarse * f, w)))
+        return out
 
 
 @torch.no_grad()

@@ -3,7 +3,7 @@
 NVIDIA Hopper GPU.  Run from the repository root, no arguments, one card:
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels   # build, ptxas and the kernel checks only
+    python3 chip_smoke.py --kernels   # build, ptxas, the kernel and nonfinite checks only
     python3 chip_smoke.py --train     # build and the training phase only
     python3 chip_smoke.py --train-dp  # build and the dp training phase only
     python3 chip_smoke.py --tools     # build and the tools phase only
@@ -36,6 +36,14 @@ kernels     each kernel against its plain PyTorch version on the card at the
             ``out=`` views; the int8 epilogue torch.equal at the 20 block
             shapes of an image at T=30 (dropout keys on 15) and of a batch
             of 11, and on a stack of 70 samples (two launches)
+nonfinite   overflowing raws at the main paths' shapes (a quarter of the
+            anchors at size logits and log-variances 80-120, some with a
+            height logit of -300..-150; NaN in a few tx and class logits)
+            through the epistemic decode, moments + finalize, box decode
+            (batch 11) and greedy NMS (1 x 120 960 and 11 x 8192, one image
+            with NaN scores) and their plain versions: NaN / +inf / -inf
+            masks and picks equal, finite values at the kernel tolerances;
+            each kernel timed on these inputs
 int8_gemm   each int8 head block's convolution at T=30: im2col +
             torch._int_mm (exact against a float64 product) beside one
             cuDNN bf16 F.conv2d of the same shape
@@ -90,7 +98,9 @@ main_path_sp
             spatial sharding, the image rows split into bands with a halo
             exchange around every 3x3 conv: epistemic T=30 bf16 over
             {'sp': 2, 'mc': 2} on four spawned ranks and over {'sp': 2};
-            batched aleatoric batch 1 over {'sp': 2} in float32 and bf16;
+            batched aleatoric batch 1 over {'sp': 2} in float32 and bf16,
+            and in float32 over {'sp': 3} on three ranks (uneven bands of
+            11, 11 and 10 rows of the stride-32 map, GSPMD's rule);
             run() over the main path's 3 frames; launches, halo exchanges
             and bytes, raw gathers and all-reduces per frame and rank; frame
             0's decoded rows equal on every rank and against the single
@@ -151,12 +161,16 @@ parity_short
             the accuracy-parity flow of parity_fullres_torch.py
             (eval/parity.py) at its geometry and inputs — bayesian,
             1024x1920, 10 unfrozen float32 steps with batch-statistics BN
-            through all 52 Darknet convs — then one production bf16 predict
-            (T=30) and one f32 twin pass on those weights: finite losses,
-            every backbone leaf moved, no kernel launched in training (the
-            plain convolutions), the predict's launches (stem 1, res block
-            11, downsample 2, epistemic decode 3, NMS >= 1), finite rows of
-            both; ms a step, peak memory of each part
+            through all 52 Darknet convs — then the production bf16 predict
+            (T=30) and the f32 twin on those weights, on the served image
+            and on its mirror image, scored pooled and by orientation:
+            finite losses, every backbone leaf moved, no kernel launched in
+            training (the plain convolutions), the served image's predict
+            launches (stem 1, res block 11, downsample 2, epistemic decode
+            3, NMS >= 1), finite rows of both pipelines on the served image
+            (whose statistics the last step recovers), the rows of both on
+            the mirror image with their overflowing ones counted; ms a step,
+            peak memory of each part
 entry       bayesian_yolov3_torch/dryrun.py's entry() (256x480, T=8, bf16):
             its pipeline twice on its example arguments, bit-equal; launches
 dryrun      dryrun_multichip(4): four ranks spawned on the card over
@@ -213,6 +227,7 @@ from bayesian_yolov3_torch.ops.launches import reset as reset_counters
 from bayesian_yolov3_torch.parallel import (
     initialize_distributed, local_rows, make_groups, make_mc_sharded_fused_pipeline)
 from bayesian_yolov3_torch.parallel.mesh import Group
+from bayesian_yolov3_torch.parallel.spatial import band_plan
 from bayesian_yolov3_torch.train.checkpoints import CheckpointStore
 from bayesian_yolov3_torch.train import loop as train_loop
 from bayesian_yolov3_torch.train.loop import partition_params
@@ -876,6 +891,179 @@ def check_nms(dev):
         "shapes": per_shape, "crafted_counts": crafted_counts,
         "crafted_chunks_with_picks": crafted_chunks,
     }
+
+
+# -- overflowing raws: every decode and NMS kernel against its plain version --
+
+# a cancellation bound added to the epistemic variance columns (4:8) of the
+# nonfinite phase: E[x^2] - E[x]^2 of logits near 100 is a difference of two
+# numbers near 1e4 that the kernel scales by 1/T as s * (1/T) and the plain
+# version as s / T; each side rounds both terms to within an ulp, so the
+# variances may differ by a few ulp of E[x^2] beside EPI_TOL
+CANCEL_ULPS = 8
+
+
+def _overflowing(gen, x, nan_cls=True):
+    """In place on raws viewed (3, chpp, S, A) (S samples or images, A
+    anchors): on a quarter of the (prior, anchor) pairs tw, th and the four
+    log-variances at whole numbers 80-120 in every sample (exp overflows
+    float32), on a tenth of those th at -300..-150 (zero height); NaN in one
+    sample's tx of 3 % of the pairs and, with ``nan_cls``, in one sample's
+    first class logit of another 3 %.  The objectness stays finite."""
+    p, _, s, a = x.shape
+    dev = x.device
+
+    def pairs(share):  # (p, 1, a): a share of the (prior, anchor) pairs
+        return torch.rand((p, 1, a), generator=gen, device=dev) < share
+
+    big = pairs(0.25)
+    ints = torch.randint(80, 121, (p, 6, s, a), generator=gen, device=dev).float()
+    x[:, 2:8] = torch.where(big[:, None], ints, x[:, 2:8])
+    flat = big & pairs(0.1)
+    low = torch.randint(-300, -149, (p, s, a), generator=gen, device=dev).float()
+    x[:, 3] = torch.where(flat, low, x[:, 3])
+    for ch in (0, 10) if nan_cls else (0,):
+        t = torch.randint(0, s, (p, 1, a), generator=gen, device=dev)
+        one = (torch.arange(s, device=dev)[None, :, None] == t) & pairs(0.03)
+        x[:, ch] = torch.where(one, torch.full_like(x[:, ch], float("nan")), x[:, ch])
+    return x
+
+
+def _same_nonfinite(name, got, want, tol=(), extra_atol=None):
+    """Equal NaN / +inf / -inf masks (checked), and the finite values'
+    largest error over ``tol`` (((lo, hi), rtol, atol), ...) plus an
+    ``extra_atol`` of the same shape (checked <= 1)."""
+    check(got.shape == want.shape, f"{name}: shapes {tuple(got.shape)} {tuple(want.shape)}")
+    masks = {}
+    for f in (torch.isnan, torch.isposinf, torch.isneginf):
+        g, w = f(got), f(want)
+        check(torch.equal(g, w), f"{name}: {f.__name__} masks differ at {int((g != w).sum())} "
+                                 f"elements")
+        masks[f.__name__] = int(w.sum())
+    fin = torch.isfinite(want)
+    ratio, worst = 0.0, 0.0
+    for (lo, hi), rtol, atol in tol:
+        g, w, m = got[..., lo:hi], want[..., lo:hi], fin[..., lo:hi]
+        a = atol if extra_atol is None else atol + extra_atol[..., lo:hi]
+        err = (g - w).abs()
+        zero = torch.zeros_like(err)
+        worst = max(worst, float(torch.where(m, err, zero).max()))
+        ratio = max(ratio, float(torch.where(m, err / (a + rtol * w.abs()), zero).max()))
+    check(ratio <= 1.0, f"{name}: finite values {ratio} x the tolerance (max abs {worst})")
+    return {"nonfinite": masks, "max_abs_err_finite": worst, "max_err_over_tolerance": ratio}
+
+
+def _nms_same(name, boxes, scores):
+    """The kernels' picks against the plain loop's: equal indices and counts."""
+    got = cuda_nms.greedy_nms_cuda(boxes, scores, MAX_OUT, 0.5)
+    torch.cuda.synchronize()
+    want = cuda_nms.greedy_nms_plain(boxes, scores, MAX_OUT, 0.5)
+    check(torch.equal(got[1], want[1]), f"{name}: counts {got[1].tolist()} != {want[1].tolist()}")
+    check(torch.equal(got[0], want[0]), f"{name}: {int((got[0] != want[0]).sum())} picks differ")
+    picked = boxes.gather(1, got[0].clamp(min=0).long()[:, :, None].expand(-1, -1, 4))
+    valid = (got[0] >= 0)[:, :, None]
+    return {"counts": got[1].tolist(),
+            "picked_infinite_box": int((torch.isinf(picked) & valid).any(dim=2).sum()),
+            "picked_nan_corner": int((torch.isnan(picked) & valid).any(dim=2).sum()),
+            "ms": event_ms(lambda: cuda_nms.greedy_nms_cuda(boxes, scores, MAX_OUT, 0.5), 5)}
+
+
+def check_nonfinite(dev, flush):
+    """Overflowing raws (``_overflowing``) at the main paths' shapes through
+    every decode and NMS kernel and its plain version: the epistemic decode
+    (the three ECP scales, T=30), the moments of the same raws and their
+    finalize in one launch over the scales, the box decode of a batch of 11
+    (aleatoric, one launch), and greedy NMS over the 120 960 epistemic rows
+    and over the top 8192 of each of the 11 images (one image with 1 % NaN
+    scores, which leave it no pick).  NaN / inf masks and picks equal; finite
+    values at the kernel checks' tolerances (the variances plus
+    CANCEL_ULPS); each kernel timed on these inputs."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    priors = _priors_by_stride(dev)
+    chpp = 2 * (5 + C)
+    out = {"inputs": "a quarter of the anchors at tw, th, log-variances 80-120 (a tenth of "
+                     "those th -300..-150), 3 % NaN tx, 3 % NaN first class logit"}
+    raws = [_overflowing(gen, torch.randn((3, chpp, T, h * w), generator=gen, device=dev) * 2)
+            .reshape(3 * chpp, T, h * w) for h, w in SCALES]
+    rows, rows_plain, decode_rec = [], [], []
+    for i, (raw, (h, w), s) in enumerate(zip(raws, SCALES, (32, 16, 8))):
+        kw = dict(n_imgs=1, h=h, w=w, cls_cnt=C, layer_id=i)
+        got = cuda_epistemic.fused_epistemic_decode_cf_batched(raw, priors[s], **kw)
+        want = cuda_epistemic.epistemic_decode_plain(raw, priors[s], **kw)
+        # E[x_j^2] of each anchor row's four logits, in the rows' order
+        ex2 = (raw.view(3, chpp, T, h * w)[:, 0:4] ** 2).mean(dim=2).permute(0, 2, 1)
+        extra = torch.zeros_like(want)
+        extra[0, :, 4:8] = (CANCEL_ULPS * 2.0 ** -24 * ex2.reshape(-1, 4)).nan_to_num(0.0)
+        rec = _same_nonfinite(f"nonfinite epistemic_decode {(h, w)}", got, want, EPI_TOL, extra)
+        rec.update(ms=event_ms(lambda: cuda_epistemic.fused_epistemic_decode_cf_batched(
+            raw, priors[s], **kw), 10, flush), device_ms=event_ms(
+            lambda: cuda_epistemic.fused_epistemic_decode_cf_batched(raw, priors[s], **kw), 10,
+            flush, device=True))
+        decode_rec.append(rec)
+        rows.append(got)
+        rows_plain.append(want)
+    out["epistemic_decode"] = decode_rec
+
+    sums = [cuda_moments.epistemic_moments_cf(raw, cls_cnt=C) for raw in raws]
+    mom = [_same_nonfinite(f"nonfinite epistemic_moments {hw}", got,
+                           cuda_moments.epistemic_moments_plain(raw, cls_cnt=C),
+                           (((0, 21 + C),) + MOM_TOL,))
+           for got, raw, hw in zip(sums, raws, SCALES)]
+    for rec, raw in zip(mom, raws):
+        rec.update(ms=event_ms(lambda: cuda_moments.epistemic_moments_cf(raw, cls_cnt=C), 10,
+                               flush),
+                   device_ms=event_ms(lambda: cuda_moments.epistemic_moments_cf(
+                       raw, cls_cnt=C), 10, flush, device=True))
+    out["epistemic_moments"] = mom
+    packed = torch.cat([m.reshape(-1) for m in sums])
+    fkw = dict(T=T, hws=SCALES, cls_cnt=C)
+    fin = cuda_moments.epistemic_finalize_all_scales(packed, priors, **fkw)
+    out["epistemic_finalize"] = _same_nonfinite(
+        "nonfinite epistemic_finalize", fin,
+        cuda_moments.epistemic_finalize_all_scales_plain(packed, priors, **fkw),
+        (((0, 21 + C),) + FIN_TOL,))
+    out["epistemic_finalize"].update(
+        ms=event_ms(lambda: cuda_moments.epistemic_finalize_all_scales(packed, priors, **fkw),
+                    10, flush),
+        device_ms=event_ms(lambda: cuda_moments.epistemic_finalize_all_scales(
+            packed, priors, **fkw), 10, flush, device=True))
+    del raws, sums, packed, fin
+
+    spec = VariantSpec(Variant.ALEATORIC, C)
+    outs = [(_overflowing(gen, torch.randn((3, chpp, BATCH, h * w), generator=gen,
+                                           device=dev) * 2).reshape(3 * chpp, BATCH, h * w),
+             (h, w)) for h, w in SCALES]
+    boxes_rows = cuda_decode.fused_box_decode_all_scales(outs, priors, spec=spec)
+    out["box_decode"] = _same_nonfinite(
+        "nonfinite box_decode", boxes_rows,
+        cuda_decode.box_decode_all_scales_plain(outs, priors, spec=spec),
+        (((0, spec.decoded_width()), *BOX_TOL),))
+    out["box_decode"].update(
+        ms=event_ms(lambda: cuda_decode.fused_box_decode_all_scales(outs, priors, spec=spec),
+                    10, flush),
+        device_ms=event_ms(lambda: cuda_decode.fused_box_decode_all_scales(
+            outs, priors, spec=spec), 10, flush, device=True))
+    del outs
+
+    epi = torch.cat(rows, dim=1)  # (1, 120960, 23)
+    obj = VariantSpec(Variant.BAYESIAN, C).obj_idx(epistemic=True)
+    check(bool(torch.isinf(epi[..., :4]).any() and torch.isnan(epi[..., :4]).any()),
+          "nonfinite: the epistemic rows hold no infinite or no NaN corner")
+    out["greedy_nms_1x120960"] = _nms_same("nonfinite greedy_nms (1, 120960)",
+                                           epi[..., :4].contiguous(),
+                                           epi[..., obj].contiguous())
+    sc = boxes_rows[..., spec.obj_idx(False)]
+    order = torch.sort(sc, dim=1, descending=True, stable=True).indices[:, :PRE_TOP_K]
+    top = torch.gather(boxes_rows, 1, order[:, :, None].expand(-1, -1, boxes_rows.shape[2]))
+    scores = top[..., spec.obj_idx(False)].clone()
+    scores[3] = torch.where(torch.rand(PRE_TOP_K, generator=gen, device=dev) < 0.01,
+                            float("nan"), scores[3])
+    out["greedy_nms_11x8192"] = _nms_same("nonfinite greedy_nms (11, 8192)",
+                                          top[..., :4].contiguous(), scores.contiguous())
+    check(out["greedy_nms_11x8192"]["counts"][3] == 0, "nonfinite: a NaN score was passed over")
+    check(out["greedy_nms_1x120960"]["picked_infinite_box"] > 0,
+          "nonfinite: no infinite box was picked")
+    return out
 
 
 # -- the fused early backbone ------------------------------------------------
@@ -2761,11 +2949,17 @@ def _sp_run(rank, name, cfg, res_dir, dev):
 
 def _sp_rank(rank, stores, cfgs, res_dir, dev):
     """One rank of ``main_path_sp``: four ranks as {'sp': 2, 'mc': 2}, then
-    ranks 0 and 1 as {'sp': 2} for the epistemic and batched runs."""
+    ranks 0-2 as {'sp': 3} for the batched float32 run over uneven bands,
+    then ranks 0 and 1 as {'sp': 2} for the epistemic and batched runs."""
     dev = torch.device(dev)
     initialize_distributed("gloo", f"file://{stores[0]}", world_size=4, rank=rank, device=dev)
     out = {"sp_mc": _sp_run(rank, "sp_mc", cfgs["sp_mc"], res_dir, dev)}
     dist.destroy_process_group()
+    if rank < 3:
+        initialize_distributed("gloo", f"file://{stores[2]}", world_size=3, rank=rank, device=dev)
+        out["sp3_batched_float32"] = _sp_run(rank, "sp3_batched_float32",
+                                             cfgs["sp3_batched_float32"], res_dir, dev)
+        dist.destroy_process_group()
     if rank < 2:
         initialize_distributed("gloo", f"file://{stores[1]}", world_size=2, rank=rank, device=dev)
         for name in ("epistemic", "batched_float32", "batched_bfloat16"):
@@ -2815,7 +3009,8 @@ def main_path_sp(tmp, dev, card, b_runner, b_runner32):
     """Spatial sharding at 1024x1920 over the main path's 3 frames, ranks
     spawned on the one card over gloo: epistemic (bayesian, T=30, bf16)
     over {'sp': 2, 'mc': 2} on four ranks and over {'sp': 2}; batched
-    aleatoric at batch 1 over {'sp': 2} in float32 and bf16.  Launches,
+    aleatoric at batch 1 over {'sp': 2} in float32 and bf16, and in float32
+    over {'sp': 3} (bands of 11, 11 and 10 rows of the stride-32 map).  Launches,
     collectives and halo traffic per frame and rank; frame 0's decoded rows
     on every rank equal, against the single-device runner's (float32: rtol
     1e-4 / atol 1e-5, corners 1e-5 x the image size, on every anchor and on
@@ -2837,19 +3032,25 @@ def main_path_sp(tmp, dev, card, b_runner, b_runner32):
         cfgs[f"batched_{dtype}"] = make_batched_config(
             tmp, "ale", "aleatoric", pattern, batch_size=1, mesh_shape={"sp": 2},
             compute_dtype=dtype, out_path=out_path(f"batched_{dtype}"))
+    cfgs["sp3_batched_float32"] = make_batched_config(
+        tmp, "ale", "aleatoric", pattern, batch_size=1, mesh_shape={"sp": 3},
+        compute_dtype="float32", out_path=out_path("sp3_batched_float32"))
+    plan = band_plan(IMG[0], 3)
+    check(plan.size == (11, 11, 10), f"sp 3 bands of {IMG[0]} rows: {plan}")
     res_dir = os.path.join(tmp, "sp_ranks")
     os.makedirs(res_dir)
-    stores = [os.path.join(res_dir, f"store{n}") for n in (4, 2)]
+    stores = [os.path.join(res_dir, f"store{n}") for n in (4, 2, 3)]
     ranks, wall = spawn_ranks(_sp_rank, 4, res_dir, stores, cfgs, res_dir, str(dev))
 
     # the single-device references, on frame 0 under the same keys
     epi = InferenceRunner(make_config(tmp, "smoke", IMG, T, pattern, **kw), seed=0)
     singles = {"sp_mc": epi, "epistemic": epi, "batched_float32": b_runner32,
-               "batched_bfloat16": b_runner}
-    out = {"phase_wall_s": wall, "backend": "gloo", "frames": 3, "card": card}
+               "batched_bfloat16": b_runner, "sp3_batched_float32": b_runner32}
+    out = {"phase_wall_s": wall, "backend": "gloo", "frames": 3, "card": card,
+           "sp3_bands_of_stride32_rows": list(plan.size)}
     frames = 3
     for name, cfg in cfgs.items():
-        n_ranks = 4 if name == "sp_mc" else 2
+        n_ranks = {"sp_mc": 4, "sp3_batched_float32": 3}.get(name, 2)
         per_rank = [r[name] for r in ranks[:n_ranks]]
         check(len({r["out_dir"] for r in per_rank}) == 1, f"sp {name}: output directories differ")
         check([r["writes"] for r in per_rank] == [frames] + [0] * (n_ranks - 1),
@@ -2877,7 +3078,7 @@ def main_path_sp(tmp, dev, card, b_runner, b_runner32):
         img = _first_batch(cfg, 1, dev)
         keys = ref.draw_keys(torch.Generator().manual_seed(0))
         want_rows = ref._decoded_rows(params, stats, img, keys).cpu()
-        if name == "batched_float32":
+        if name in ("batched_float32", "sp3_batched_float32"):
             agree = _f32_rows_agree(f"sp {name}", ref, rows[0], want_rows)
         else:
             agree = rows_agree_bf16(f"sp {name}", rows[0], want_rows,
@@ -3957,30 +4158,51 @@ def parity_short(dev):
 
     runner = InferenceRunner(parity_fullres_torch.production_config(), device=dev)
     keys = runner.draw_keys()
+    mirror_image, mirror_boxes = eval_parity.mirrored(batch["image"], gt[0][0])
+    images = {0: batch["image"], 1: mirror_image}
+    gt = {0: gt[0], 1: (mirror_boxes, gt[0][1])}
+    prod, ref = {}, {}
     reset_counters()
     t1 = time.time()
     (rows, valid), predict_gb = _with_peak_gb(
-        lambda: runner.predict(params, stats, batch["image"], keys))
+        lambda: runner.predict(params, stats, images[0], keys))
     predict_s = time.time() - t1
     launches = read_counters()
     _predict_launches("parity_short predict", launches)
+    prod[0] = (rows[0], valid[0])
+    rows, valid = runner.predict(params, stats, images[1], keys)
+    prod[1] = (rows[0], valid[0])
     t2 = time.time()
-    ref, twin_gb = _with_peak_gb(
-        lambda: eval_parity.reference_twin(params, stats, batch["image"], keys, dev))
+    ref[0], twin_gb = _with_peak_gb(
+        lambda: eval_parity.reference_twin(params, stats, images[0], keys, dev))
     twin_s = time.time() - t2
-    for name, (r, v) in (("production", (rows[0], valid[0])), ("twin", ref)):
-        check(v.any() and np.isfinite(r[v]).all(), f"parity_short {name}: rows not finite")
-    cmp = eval_parity.compare({0: (rows[0], valid[0])}, {0: ref}, gt, runner.spec, geometry=IMG,
-                              T=T, train_steps=PARITY_SHORT_STEPS)
+    ref[1] = eval_parity.reference_twin(params, stats, images[1], keys, dev)
+    # the recovered statistics are the last step's input's: the served image
+    # at step 10 (no flip drawn), so its rows are finite; the mirror image's
+    # may overflow under them and are counted
+    for side, (r, v) in (("production", prod[0]), ("twin", ref[0])):
+        check(v.any() and np.isfinite(r[v]).all(), f"parity_short {side}: rows not finite")
+    for side, (r, v) in (("production", prod[1]), ("twin", ref[1])):
+        check(v.any() and r.shape == prod[0][0].shape, f"parity_short {side} (mirrored): rows")
+    cmp = eval_parity.compare_orientations(prod, ref, gt, runner.spec, geometry=IMG, T=T,
+                                           train_steps=PARITY_SHORT_STEPS)
+    keep = ("mAP_production_bf16", "mAP_reference_f32", "abs_dmAP",
+            "matched_confident_detections", "nonvacuous", "pass")
     return {"steps": PARITY_SHORT_STEPS, "losses": losses,
             "ms_per_step_median": float(np.median(step_ms)), "step_ms": step_ms,
             "peak_mem_GB_train": train_gb, "peak_mem_GB_predict_bf16": predict_gb,
             "peak_mem_GB_twin_f32": twin_gb, "train_s": train_s, "predict_s": predict_s,
             "twin_s": twin_s, "train_launches": train_launches, "predict_launches": launches,
             "backbone_leaves_moved": len(list(_named_leaves(params["backbone"]))),
-            "rows": {"production": int(valid.sum()), "twin": int(ref[1].sum())},
-            **{k: cmp[k] for k in ("mAP_production_bf16", "mAP_reference_f32", "abs_dmAP",
-                                   "matched_confident_detections")}}
+            "rows": {name: {"production": int(prod[b][1].sum()), "twin": int(ref[b][1].sum())}
+                     for b, name in enumerate(eval_parity.ORIENTATIONS)},
+            "nonfinite_rows": {name: {side: int((~np.isfinite(r[v])).any(axis=1).sum())
+                                      for side, (r, v) in (("production", prod[b]),
+                                                           ("twin", ref[b]))}
+                               for b, name in enumerate(eval_parity.ORIENTATIONS)},
+            **{k: cmp[k] for k in keep},
+            "by_orientation": {name: {k: c[k] for k in keep}
+                               for name, c in cmp["by_orientation"].items()}}
 
 
 def entry_phase():
@@ -4027,7 +4249,7 @@ def _peaks(summary):
 
 
 def summarize(main_summary, timings, split, mc, mc2, b_summary, b_timings, gemm, int8, dp, sp,
-              train, train_dp, tools, short, ent, dry):
+              train, train_dp, tools, short, ent, dry, nonfinite):
     """One compact line of the numbers each phase measured (ms per frame,
     stages, all-reduce, peak memory of every run, launches per frame),
     printed just before the kernels line so that the end of the output
@@ -4103,6 +4325,13 @@ def summarize(main_summary, timings, split, mc, mc2, b_summary, b_timings, gemm,
     out["parity_short"] = {k: short[k] for k in (
         "ms_per_step_median", "peak_mem_GB_train", "peak_mem_GB_predict_bf16",
         "peak_mem_GB_twin_f32", "train_s", "predict_s", "twin_s", "predict_launches")}
+    out["parity_short"]["by_orientation"] = short["by_orientation"]
+    out["nonfinite"] = {
+        name: ([{k: r[k] for k in ("ms", "device_ms", "max_err_over_tolerance")} for r in rec]
+               if isinstance(rec, list) else
+               {k: rec[k] for k in ("ms", "device_ms", "max_err_over_tolerance", "counts")
+                if k in rec})
+        for name, rec in nonfinite.items() if name not in ("inputs", "card")}
     out["entry"] = {"ms": ent["ms"], "launches": ent["launches"]}
     out["dryrun"] = {"wall_s": dry["wall_s"],
                      "per_rank_s": [r["seconds"] for r in dry["per_rank"]]}
@@ -4189,6 +4418,8 @@ def smoke(card, kernels):
                     check_box_decode(dev, flush), check_epistemic_moments(dev, flush),
                     check_epistemic_finalize(dev, flush), check_quant_epilogue(dev, flush)])
     emit("kernels", card=card, kernels=kernels)
+    nonfinite = check_nonfinite(dev, flush)
+    emit("nonfinite", card=card, **nonfinite)
     gemm = int8_gemm(dev, flush)
     emit("int8_gemm", card=card, **gemm)
     del flush
@@ -4256,7 +4487,7 @@ def smoke(card, kernels):
         k["launches"] = path.get(k["name"], launches)[k["name"]]
     emit("summary", card=card, ptxas=ptxas, smoke_wall_s=time.time() - t_start,
          **summarize(summary, timings, split, mc_summary, mc2, b_summary, b_timings, gemm,
-                     int8, dp, sp, train, train_dp, tools, short, ent, dry))
+                     int8, dp, sp, train, train_dp, tools, short, ent, dry, nonfinite))
     emit("done", seconds=time.time() - t_start)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

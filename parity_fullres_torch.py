@@ -17,7 +17,10 @@ pipeline and an f32 reference-strategy twin give the same mAP (|dmAP| <=
        downsample kernels, the epistemic decode kernel, the NMS kernel), and
    (b) the f32 twin (``mc_forward``, per-scale decode, exact NMS);
 3. score both against the synthetic ground truth and compare the variance
-   columns of matched detections.
+   columns of matched detections — on the served image and on its mirror
+   image (flipped along W, boxes x -> 1 - x: the other orientation that the
+   training's flip draws), each alone and pooled; ``nonvacuous`` and
+   ``pass`` are read on the pooled set.
 
 The inputs are parity_fullres.py's, drawn in its order from
 ``np.random.default_rng(0)``: a uniform image and 3 pedestrian-shaped boxes
@@ -35,8 +38,11 @@ weights locate a failure of the comparison:
   (``plain_kernels``; no kernel launches) against the bf16 predict: the
   same mAP means the gap to the twin is bf16 rounding, not a kernel.
 
-Writes PARITY_FULLRES_TORCH.json (``--out``): parity_fullres.py's keys, the
-witnesses, each pipeline's selected rows with an overflowing column, the
+Every pipeline and witness runs on both images with the one key table.
+Writes PARITY_FULLRES_TORCH.json (``--out``): parity_fullres.py's keys (of
+the pooled set), ``by_orientation`` (the served image's and the mirror
+image's own comparison), the witnesses (pooled and by orientation), each
+pipeline's selected rows with an overflowing column, the
 loss terms every 100 steps with that step's augmentation draws, the trained
 weights' loss terms on the served image and on its mirror image, a
 checksum of the trained weights,
@@ -150,7 +156,7 @@ def log(msg):
 
 def _pipeline(name, dev, fn):
     """``fn() -> ((rows, valid), decoded rows of every anchor)`` of one
-    pipeline, timed: its seconds, peak GB and kernel launches."""
+    pipeline on one image, timed: its seconds, peak GB and kernel launches."""
     launches.reset()
     t0 = time.time()
     ((rows, valid), decoded), gb = _peak_gb(dev, fn)
@@ -176,29 +182,47 @@ def _detection_score(rows, spec):
     return rows[:, spec.obj_idx(epistemic=True)] * rows[:, cls0:cls0 + spec.cls_cnt].max(axis=1)
 
 
-def witness(a, b, gt, spec) -> dict:
-    """Two pipelines' (rows, valid, decoded) of the one image: ``a`` scored
-    as the production side of ``parity.compare`` and ``b`` as the twin; and
-    their decoded rows paired by anchor, before NMS: the largest difference
-    of the detection score over every anchor, and of the box corners over
-    the anchors that either pipeline scores >= SCORED and both decode to
-    finite corners (an overflowing box size decodes to inf; those are
-    counted)."""
-    out = parity.compare({0: a[:2]}, {0: b[:2]}, gt, spec, geometry=FULL, T=T,
-                         train_steps=STEPS)
-    sa, sb = _detection_score(a[2], spec), _detection_score(b[2], spec)
+def _anchor_deltas(a, b, spec) -> dict:
+    """Two pipelines' decoded rows of the same anchors: the largest
+    difference of the detection score over every anchor, and of the box
+    corners over the anchors that either pipeline scores >= SCORED and both
+    decode to finite corners (an overflowing box size decodes to inf; those
+    are counted)."""
+    sa, sb = _detection_score(a, spec), _detection_score(b, spec)
     scored = np.maximum(sa, sb) >= SCORED
-    finite = np.isfinite(a[2][:, :4]).all(axis=1) & np.isfinite(b[2][:, :4]).all(axis=1)
-    return {"mAP_a": out["mAP_production_bf16"], "mAP_b": out["mAP_reference_f32"],
-            "abs_dmAP": out["abs_dmAP"], "rows_a": int(a[1].sum()), "rows_b": int(b[1].sum()),
-            "matched_confident_detections": out["matched_confident_detections"],
-            "worst_matched_variance_rel_delta": out["worst_matched_variance_rel_delta"],
-            "anchor_max_abs_score_delta": float(np.abs(sa - sb).max()),
+    finite = np.isfinite(a[:, :4]).all(axis=1) & np.isfinite(b[:, :4]).all(axis=1)
+    return {"anchor_max_abs_score_delta": float(np.abs(sa - sb).max()),
             "anchors_scored": int(scored.sum()),
             "anchors_scored_with_infinite_box": int((scored & ~finite).sum()),
             "anchor_max_abs_box_delta_scored": (
-                float(np.abs(a[2][scored & finite, :4] - b[2][scored & finite, :4]).max())
+                float(np.abs(a[scored & finite, :4] - b[scored & finite, :4]).max())
                 if (scored & finite).any() else None)}
+
+
+def _witness_numbers(cmp, a, b) -> dict:
+    return {"mAP_a": cmp["mAP_production_bf16"], "mAP_b": cmp["mAP_reference_f32"],
+            "abs_dmAP": cmp["abs_dmAP"], "rows_a": int(sum(v[1].sum() for v in a.values())),
+            "rows_b": int(sum(v[1].sum() for v in b.values())),
+            "matched_confident_detections": cmp["matched_confident_detections"],
+            "worst_matched_variance_rel_delta": cmp["worst_matched_variance_rel_delta"]}
+
+
+def witness(a, b, gt, spec) -> dict:
+    """Two pipelines' {image: (rows, valid, decoded)}: ``a`` scored as the
+    production side of ``parity.compare_orientations`` and ``b`` as the
+    twin, pooled and by orientation; and their decoded rows paired by
+    anchor (``_anchor_deltas``), pooled over the images and by orientation."""
+    cmp = parity.compare_orientations({k: v[:2] for k, v in a.items()},
+                                      {k: v[:2] for k, v in b.items()}, gt, spec,
+                                      geometry=FULL, T=T, train_steps=STEPS)
+    out = {**_witness_numbers(cmp, a, b),
+           **_anchor_deltas(np.concatenate([a[k][2] for k in sorted(a)]),
+                            np.concatenate([b[k][2] for k in sorted(b)]), spec)}
+    out["by_orientation"] = {
+        name: {**_witness_numbers(cmp["by_orientation"][name], {k: a[k]}, {k: b[k]}),
+               **_anchor_deltas(a[k][2], b[k][2], spec)}
+        for k, name in enumerate(parity.ORIENTATIONS)}
+    return out
 
 
 def _augmentation(step: int) -> dict:
@@ -257,33 +281,45 @@ def run() -> dict:
 
     by_orientation = orientation_losses(cfg, params, stats, batch, dev)
     log(f"final loss terms by orientation: {by_orientation}")
-    image = batch["image"]
+    mirror_image, mirror_boxes = parity.mirrored(batch["image"], gt[0][0])
+    images = {0: batch["image"], 1: mirror_image}
+    gt = {0: gt[0], 1: (mirror_boxes, gt[0][1])}
     prod = InferenceRunner(production_config(), device=dev)
     f32 = InferenceRunner(production_config("float32"), device=dev)
     keys = prod.draw_keys()
     runs = {
-        "production_bf16": lambda: _runner_outputs(prod, params, stats, image, keys),
-        "reference_f32": lambda: (
+        "production_bf16": lambda image: _runner_outputs(prod, params, stats, image, keys),
+        "reference_f32": lambda image: (
             parity.reference_twin(params, stats, image, keys, dev),
             parity.reference_decoded(params, stats, image, keys, dev)),
-        "runner_f32": lambda: _runner_outputs(f32, params, stats, image, keys),
+        "runner_f32": lambda image: _runner_outputs(f32, params, stats, image, keys),
     }
     out_of, info = {}, {}
+
+    def on_both(name, fn):
+        out_of[name], info[name] = {}, {}
+        for b, image in images.items():
+            out_of[name][b], info[name][parity.ORIENTATIONS[b]] = _pipeline(
+                f"{name} ({parity.ORIENTATIONS[b]})", dev, lambda: fn(image))
+
     for name, fn in runs.items():
-        out_of[name], info[name] = _pipeline(name, dev, fn)
+        on_both(name, fn)
     with plain_kernels():
-        out_of["plain_bf16"], info["plain_bf16"] = _pipeline(
-            "plain_bf16", dev, lambda: _runner_outputs(prod, params, stats, image, keys))
-    if info["plain_bf16"]["launches"]:
-        raise RuntimeError(f"the plain pipeline launched {info['plain_bf16']['launches']}")
+        on_both("plain_bf16", runs["production_bf16"])
+    launched = [v["launches"] for v in info["plain_bf16"].values() if v["launches"]]
+    if launched:
+        raise RuntimeError(f"the plain pipeline launched {launched}")
 
     spec = prod.spec
-    out = parity.compare({0: out_of["production_bf16"][:2]}, {0: out_of["reference_f32"][:2]},
-                         gt, spec, geometry=FULL, T=T, train_steps=STEPS)
+    out = parity.compare_orientations(
+        {k: v[:2] for k, v in out_of["production_bf16"].items()},
+        {k: v[:2] for k, v in out_of["reference_f32"].items()},
+        gt, spec, geometry=FULL, T=T, train_steps=STEPS)
     pairs = {"runner_f32_vs_twin": ("runner_f32", "reference_f32"),
              "plain_bf16_vs_kernel_bf16": ("plain_bf16", "production_bf16"),
              "plain_bf16_vs_twin": ("plain_bf16", "reference_f32"),
              "kernel_bf16_vs_twin": ("production_bf16", "reference_f32")}
+    peak = {k: max(v["peak_GB"] for v in info[k].values()) for k in info}
     out.update({
         **{f"witness_{k}": witness(out_of[a], out_of[b], gt, spec) for k, (a, b) in pairs.items()},
         "pipelines": info,
@@ -292,22 +328,26 @@ def run() -> dict:
         "final_train_loss": loss, "train_losses_every_100": losses,
         "final_loss_terms_by_orientation": by_orientation,
         # selected rows with an overflowing column (an inf box side or variance)
-        "nonfinite_rows": {k: int((~np.isfinite(o[0][o[1]])).any(axis=1).sum())
-                           for k, o in out_of.items()},
+        "nonfinite_rows": {k: {parity.ORIENTATIONS[b]: int((~np.isfinite(o[0][o[1]])).any(axis=1)
+                                                           .sum()) for b, o in v.items()}
+                           for k, v in out_of.items()},
         "weights_abs_sum": float(sum(float(w.double().abs().sum()) for w in leaves(params))),
         "ms_per_train_step_median": float(np.median(step_ms[1:] or step_ms)),
         "ms_first_train_step": step_ms[0],
-        "peak_GB_train": train_gb, "peak_GB_predict_bf16": info["production_bf16"]["peak_GB"],
-        "peak_GB_twin_f32": info["reference_f32"]["peak_GB"],
-        "seconds": {"train": train_s, **{k: v["seconds"] for k, v in info.items()},
+        "peak_GB_train": train_gb, "peak_GB_predict_bf16": peak["production_bf16"],
+        "peak_GB_twin_f32": peak["reference_f32"],
+        "seconds": {"train": train_s, **{k: sum(x["seconds"] for x in v.values())
+                                         for k, v in info.items()},
                     "total": time.time() - t0},
     })
     os.makedirs(os.path.dirname(ROWS_OUT), exist_ok=True)
-    np.savez(ROWS_OUT, keys=np.asarray(keys), gt_boxes=gt[0][0], gt_labels=gt[0][1],
-             **{f"{k}_rows": o[0] for k, o in out_of.items()},
-             **{f"{k}_valid": o[1] for k, o in out_of.items()},
-             **{f"{k}_anchor_scores": _detection_score(o[2], spec) for k, o in out_of.items()},
-             **{f"stats/{n}": t.cpu().numpy() for n, t in _named(stats)})
+    arrays = {"keys": np.asarray(keys)}
+    for b, name in enumerate(parity.ORIENTATIONS):
+        arrays.update({f"{name}/gt_boxes": gt[b][0], f"{name}/gt_labels": gt[b][1]})
+        for k, v in out_of.items():
+            arrays.update({f"{name}/{k}_rows": v[b][0], f"{name}/{k}_valid": v[b][1],
+                           f"{name}/{k}_anchor_scores": _detection_score(v[b][2], spec)})
+    np.savez(ROWS_OUT, **arrays, **{f"stats/{n}": t.cpu().numpy() for n, t in _named(stats)})
     return out
 
 

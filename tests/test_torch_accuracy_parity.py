@@ -56,6 +56,7 @@ from bayesian_yolov3_tpu.config import Config as JConfig
 from bayesian_yolov3_tpu.core.blueprint import Variant as JVariant
 from bayesian_yolov3_tpu.core.blueprint import VariantSpec as JVariantSpec
 from bayesian_yolov3_tpu.core.priors import priors_as_array as jpriors_as_array
+from bayesian_yolov3_tpu.data import augment as j_augment
 from bayesian_yolov3_tpu.eval.detection_metrics import evaluate_detections as j_evaluate
 from bayesian_yolov3_tpu.infer.runner import InferenceRunner as JRunner
 from bayesian_yolov3_tpu.models.yolov3 import YoloV3 as JYoloV3
@@ -64,6 +65,7 @@ from bayesian_yolov3_tpu.ops import nms as jnms
 
 from bayesian_yolov3_torch import convert
 from bayesian_yolov3_torch.config import Config
+from bayesian_yolov3_torch.data import augment as t_augment
 from bayesian_yolov3_torch.eval import parity
 from bayesian_yolov3_torch.infer import InferenceRunner
 from bayesian_yolov3_torch.models.yolov3 import YoloV3, _fixed_key_table, init_yolov3
@@ -262,22 +264,61 @@ def test_plain_kernels_swaps_every_kernel_of_the_predict():
 
 
 def test_witness_pairs_rows_by_anchor(rng):
-    """A pipeline against itself: dmAP 0 and no anchor differs; one anchor's
-    score moved by 0.25 shows as the anchor score delta."""
+    """A pipeline against itself on the served and the mirror image: dmAP 0
+    and no anchor differs; one anchor's score moved by 0.25 in the mirror
+    image shows as the anchor score delta, pooled and in that orientation
+    alone."""
     spec = SPEC
-    decoded = rng.uniform(0, 1, (300, 23)).astype(np.float32)
-    decoded[:, 2:4] = decoded[:, 0:2] + 0.1
-    rows, valid = _random_rows(rng)
-    gt = {0: (rows[valid][:2, :4], np.array([1, 2]))}
-    same = parity_fullres_torch.witness((rows, valid, decoded), (rows, valid, decoded), gt, spec)
+    a, b, gt = {}, {}, {}
+    for k in range(2):
+        decoded = rng.uniform(0, 1, (300, 23)).astype(np.float32)
+        decoded[:, 2:4] = decoded[:, 0:2] + 0.1
+        rows, valid = _random_rows(rng)
+        a[k] = b[k] = (rows, valid, decoded)
+        gt[k] = (rows[valid][:2, :4], np.array([1, 2]))
+    same = parity_fullres_torch.witness(a, b, gt, spec)
     assert same["abs_dmAP"] == 0.0 and same["anchor_max_abs_score_delta"] == 0.0
     assert same["anchors_scored"] > 0 and same["anchor_max_abs_box_delta_scored"] == 0.0
-    moved = decoded.copy()
+    assert set(same["by_orientation"]) == {"served", "mirrored"}
+    moved = b[1][2].copy()
     obj = spec.obj_idx(epistemic=True)
     cls0 = spec.cls_start_idx(epistemic=True)
-    moved[7, obj] = decoded[7, obj] + 0.25 / decoded[7, cls0:cls0 + 2].max()
-    got = parity_fullres_torch.witness((rows, valid, moved), (rows, valid, decoded), gt, spec)
+    moved[7, obj] = moved[7, obj] + 0.25 / moved[7, cls0:cls0 + 2].max()
+    got = parity_fullres_torch.witness({0: a[0], 1: (*a[1][:2], moved)}, b, gt, spec)
     np.testing.assert_allclose(got["anchor_max_abs_score_delta"], 0.25, rtol=1e-5)
+    np.testing.assert_allclose(
+        got["by_orientation"]["mirrored"]["anchor_max_abs_score_delta"], 0.25, rtol=1e-5)
+    assert got["by_orientation"]["served"]["anchor_max_abs_score_delta"] == 0.0
+
+
+def test_mirrored_is_the_flip_augmentation(rng):
+    """``parity.mirrored`` is both packages' flip augmentation of the image
+    and its boxes (``data/augment.py:flip_lr``)."""
+    img = rng.integers(0, 256, (1, 6, 10, 3), dtype=np.uint8)
+    boxes = rng.uniform(0, 0.5, (3, 4)).astype(np.float32)
+    boxes[:, 2:] += 0.4
+    got_img, got_boxes = parity.mirrored(img, boxes)
+    want_img, want_boxes = t_augment.flip_lr(torch.from_numpy(img[0]), torch.from_numpy(boxes))
+    j_img, j_boxes = j_augment.flip_lr(jnp.asarray(img[0]), jnp.asarray(boxes))
+    for want_i, want_b in ((want_img.numpy(), want_boxes.numpy()),
+                           (np.asarray(j_img), np.asarray(j_boxes))):
+        np.testing.assert_array_equal(got_img[0], want_i)
+        np.testing.assert_array_equal(got_boxes, want_b)
+
+
+def test_compare_orientations_pools_both_images(rng):
+    """The pooled comparison is ``compare`` of both images; each
+    orientation's is ``compare`` of its image alone."""
+    prod = {k: _random_rows(rng) for k in range(2)}
+    ref = {k: _random_rows(rng) for k in range(2)}
+    gt = {k: (ref[k][0][ref[k][1]][:3, :4], np.array([1, 2, 1])) for k in range(2)}
+    kw = dict(geometry=IMG, T=T, train_steps=1)
+    got = parity.compare_orientations(prod, ref, gt, SPEC, **kw)
+    pooled = parity.compare(prod, ref, gt, SPEC, **kw)
+    assert {k: v for k, v in got.items() if k != "by_orientation"} == pooled
+    for k, name in enumerate(parity.ORIENTATIONS):
+        assert got["by_orientation"][name] == parity.compare({k: prod[k]}, {k: ref[k]},
+                                                             {k: gt[k]}, SPEC, **kw)
 
 
 @pytest.fixture(scope="module")

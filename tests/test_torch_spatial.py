@@ -4,10 +4,13 @@ ranks.
 
 ONE module-scoped job of four spawned ranks: first the four join a group
 as ``{'sp': 2, 'mc': 2}`` (subgroups, the halo exchange, the sp x mc raws,
-the runner's predict and run()); then ranks 0 and 1 join a second group as
-``{'sp': 2}`` (the batched raws of the three variants, the runner's batched
-and epistemic run()) while ranks 2 and 3 end.  At 64x96 and sp=2 every
-rank holds 32 image rows, and one row of the stride-32 map.
+the runner's predict and run()); then ranks 0-2 join a group as ``{'sp':
+3}`` (uneven bands: batched aleatoric at 160x96, bands of 2, 2 and 1 rows of
+the stride-32 map; an empty band: epistemic at 64x96, bands of 1, 1 and 0,
+rank 2 idle through the convs), and ranks 0 and 1 a last one as ``{'sp':
+2}`` (the batched raws of the three variants, the runner's batched and
+epistemic run()).  At 64x96 and sp=2 every rank holds 32 image rows, and
+one row of the stride-32 map.
 
 References and tolerances.  Raws against the JAX package's single-device
 forward under the same dropout keys (its ``_heads`` with
@@ -42,7 +45,7 @@ from bayesian_yolov3_torch.config import Config, DataConfig
 from bayesian_yolov3_torch.core.blueprint import Variant, VariantSpec
 from bayesian_yolov3_torch.data import pipeline, proto, tfrecord
 from bayesian_yolov3_torch.infer import InferenceRunner
-from bayesian_yolov3_torch.models.yolov3 import _fixed_key_table
+from bayesian_yolov3_torch.models.yolov3 import _fixed_key_table, forward_cf, mc_forward_cf
 from bayesian_yolov3_torch.ops.common import dropout, hash_keep
 from bayesian_yolov3_torch.parallel import (
     Band,
@@ -52,12 +55,13 @@ from bayesian_yolov3_torch.parallel import (
     spatial_forward_raws,
     spatial_mc_raws,
 )
-from bayesian_yolov3_torch.parallel.spatial import check_height
+from bayesian_yolov3_torch.parallel.spatial import STRIDE, band_plan, check_height
 
 import torch_parity as tp
 
 SPMC = {"sp": 2, "mc": 2}
 SP = {"sp": 2}
+SP3 = {"sp": 3}
 T = 8
 SEED = 9  # the fixed key tables of the raw comparisons
 STEP = 12
@@ -71,6 +75,8 @@ BATCHED = dict(model="aleatoric", inference_mode=False, batch_size=2, compute_dt
 # 40 candidates cannot fill 50 selections: the certificate fails, the exact
 # retry runs
 FALLBACK = dict(nms_max_boxes=50, nms_pre_top_k=40)
+TALL = (160, 96, 3)  # 5 rows of the stride-32 map: 2, 2 and 1 over sp=3
+TALL_IMAGES = tp.image_u8(seed=6, nb=2, hw=TALL[:2])
 
 
 @functools.lru_cache(maxsize=None)
@@ -150,6 +156,32 @@ def _sp_mc_work(rank, data, out):
     return res
 
 
+def _sp3_work():
+    """Ranks 0-2 as {'sp': 3}: the raws and the runner's predict of the
+    uneven bands (batched aleatoric, 160x96) and of the bands with an empty
+    one (epistemic T=8, 64x96, one fixed key table)."""
+    res = {}
+    (sp,) = make_groups(SP3).values()
+    params, stats = tp.to_torch(*_weights("aleatoric"))
+    outs = spatial_forward_raws(params, stats, torch.from_numpy(TALL_IMAGES).float() / 255.0,
+                                None, spec=VariantSpec(Variant.ALEATORIC, 2), group=sp,
+                                compute_dtype=torch.float32)
+    res.update({f"tall_raw{i}": raw.numpy() for i, (raw, _) in enumerate(outs)})
+    runner = InferenceRunner(Config(**dict(BATCHED, full_img_size=TALL), mesh_shape=SP3),
+                             device="cpu")
+    res["tall_rows"], res["tall_valid"] = runner.predict(params, stats, TALL_IMAGES)
+
+    params, stats = tp.to_torch(*_weights("bayesian"))
+    keys = _fixed_key_table(SEED, T)
+    outs = spatial_mc_raws(params, stats, torch.from_numpy(IMAGES[:1]).float() / 255.0, keys,
+                           spec=VariantSpec(Variant.BAYESIAN, 2), group=sp, T=T,
+                           compute_dtype=torch.float32)
+    res.update({f"empty_raw{i}": raw.numpy() for i, (raw, _) in enumerate(outs)})
+    runner = InferenceRunner(Config(**EPI, mesh_shape=SP3), device="cpu")
+    res["empty_rows"], res["empty_valid"] = runner.predict(params, stats, IMAGES[:1], keys)
+    return res
+
+
 def _sp_work(rank, data, out):
     """Ranks 0 and 1 as {'sp': 2}."""
     res = {}
@@ -178,6 +210,11 @@ def _rank_main(rank, out, data):
                            rank=rank, device="cpu")
     res = _sp_mc_work(rank, data, out)
     dist.destroy_process_group()
+    if rank < 3:
+        initialize_distributed("gloo", "file://" + os.path.join(out, "store3"), world_size=3,
+                               rank=rank, device="cpu")
+        res.update(_sp3_work())
+        dist.destroy_process_group()
     if rank < 2:
         initialize_distributed("gloo", "file://" + os.path.join(out, "store2"), world_size=2,
                                rank=rank, device="cpu")
@@ -247,10 +284,11 @@ def test_sp_bayesian_masks_bite(ranks):
     assert not np.allclose(ranks[0]["bayesian_raw2"], ranks[0]["aleatoric_raw2"], atol=1e-3)
 
 
-def test_sp_mc_raws_match_jax_mc_forward(ranks):
-    """sp=2 x mc=2: rank (s, m) holds the whole maps of samples
-    [4m, 4m+4) of the fixed table, against the JAX package's mc_forward
-    under ``fixed_masks`` (the same table)."""
+@functools.lru_cache(maxsize=None)
+def _jax_mc_raws():
+    """The JAX package's mc_forward of IMAGES[0] under ``fixed_masks=SEED``
+    (the table of ``_fixed_key_table(SEED, T)``), channels-first: [(ch, T,
+    h*w) numpy, ...]."""
     model = JYoloV3(spec=JSpec(JVariant.BAYESIAN, 2), priors=J_PRIORS, img_size=tp.IMG,
                     compute_dtype="float32")
     params_np, stats_np = _weights("bayesian")
@@ -258,14 +296,82 @@ def test_sp_mc_raws_match_jax_mc_forward(ranks):
     want = jax.jit(lambda p, s, x: model.mc_forward(p, s, x, T=T, rng=None,
                                                     fixed_masks=SEED))(
         tp.to_jax(params_np), tp.to_jax(stats_np), img)
+    return [np.asarray(w).transpose(3, 0, 1, 2).reshape(w.shape[3], T, -1) for w in want]
+
+
+def test_sp_mc_raws_match_jax_mc_forward(ranks):
+    """sp=2 x mc=2: rank (s, m) holds the whole maps of samples
+    [4m, 4m+4) of the fixed table, against the JAX package's mc_forward
+    under ``fixed_masks`` (the same table)."""
     per = T // 2
     for rank, res in enumerate(ranks):
         m = rank % 2
-        for i, w in enumerate(want):
-            w = np.asarray(w)  # (T, h, w, ch)
-            cf = w.transpose(3, 0, 1, 2).reshape(w.shape[3], T, -1)[:, m * per:(m + 1) * per]
-            assert tuple(res[f"mc_hw{i}"]) == w.shape[1:3]
-            np.testing.assert_allclose(res[f"mc_raw{i}"], cf, **RAW_TOL)
+        for i, cf in enumerate(_jax_mc_raws()):
+            h, w = res[f"mc_hw{i}"]
+            assert cf.shape[-1] == h * w
+            np.testing.assert_allclose(res[f"mc_raw{i}"], cf[:, m * per:(m + 1) * per],
+                                       **RAW_TOL)
+
+
+def _assert_rows_close(got, got_valid, want, want_valid):
+    """Selected rows of the runner's predict against the single device's, at
+    the ECP JSON's float32 tolerances below (``_assert_dets_close``; the
+    epistemic covariance determinant, column 12, at rtol 1e-3)."""
+    np.testing.assert_array_equal(got_valid, want_valid)
+    assert want_valid.sum() > 5
+    rtol = np.full(want.shape[-1], 1e-4)
+    if want.shape[-1] == 23:
+        rtol[12] = 1e-3
+    g, w = got[got_valid], want[want_valid]
+    over = np.abs(g - w) / (1e-5 + rtol * np.abs(w))
+    assert over.max() <= 1.0, (f"{int((over > 1).sum())} of {over.size} values off, worst "
+                               f"{over.max()} x the tolerance in column "
+                               f"{np.unravel_index(over.argmax(), over.shape)[1]}")
+
+
+def test_sp3_uneven_bands_match_single_device(ranks):
+    """{'sp': 3} at 160x96, bands of 2, 2 and 1 rows of the stride-32 map,
+    batched aleatoric, batch 2: on every rank the gathered raws against the
+    port's single-device forward (which meets the JAX package's forward at
+    the same weights) at RAW_TOL, and the runner's predict rows against the
+    single-device runner's."""
+    params_np, stats_np = _weights("aleatoric")
+    params, stats = tp.to_torch(params_np, stats_np)
+    imgs = TALL_IMAGES.astype(np.float32) / 255.0
+    single = forward_cf(params, stats, torch.from_numpy(imgs),
+                        spec=VariantSpec(Variant.ALEATORIC, 2), compute_dtype=torch.float32)
+    jax_raws = tp.jax_forward_cf(params_np, stats_np, imgs, JSpec(JVariant.ALEATORIC, 2))
+    rows, valid = InferenceRunner(Config(**dict(BATCHED, full_img_size=TALL)),
+                                  device="cpu").predict(params, stats, TALL_IMAGES)
+    for i, ((raw, hw), (want, jhw), s) in enumerate(zip(single, jax_raws, (32, 16, 8))):
+        assert hw == jhw == (TALL[0] // s, TALL[1] // s)
+        np.testing.assert_allclose(raw.numpy(), want, **RAW_TOL)
+        for res in ranks[:3]:
+            np.testing.assert_allclose(res[f"tall_raw{i}"], raw.numpy(), **RAW_TOL)
+    for res in ranks[:3]:
+        _assert_rows_close(res["tall_rows"], res["tall_valid"], rows, valid)
+
+
+def test_sp3_empty_band_matches_single_device(ranks):
+    """{'sp': 3} at 64x96, bands of 1, 1 and 0 rows of the stride-32 map (rank
+    2 holds no row and idles through the convs), epistemic T=8 under one
+    fixed key table: on every rank the gathered raws against the port's
+    single-device mc_forward_cf (which meets the JAX package's mc_forward
+    under the same table) at RAW_TOL, and the runner's predict rows against
+    the single-device runner's."""
+    params, stats = tp.to_torch(*_weights("bayesian"))
+    keys = _fixed_key_table(SEED, T)
+    single = mc_forward_cf(params, stats, torch.from_numpy(IMAGES[:1]).float() / 255.0,
+                           spec=VariantSpec(Variant.BAYESIAN, 2), T=T, rng=keys,
+                           compute_dtype=torch.float32)
+    rows, valid = InferenceRunner(Config(**EPI), device="cpu").predict(params, stats,
+                                                                       IMAGES[:1], keys)
+    for i, ((raw, _), want) in enumerate(zip(single, _jax_mc_raws())):
+        np.testing.assert_allclose(raw.numpy(), want, **RAW_TOL)
+        for res in ranks[:3]:
+            np.testing.assert_allclose(res[f"empty_raw{i}"], raw.numpy(), **RAW_TOL)
+    for res in ranks[:3]:
+        _assert_rows_close(res["empty_rows"], res["empty_valid"], rows, valid)
 
 
 # --------------------------------------------------------------------------
@@ -353,14 +459,18 @@ def test_runner_sp_mc_json_matches_single_device(ranks, single):
     (dict(EPI, mesh_shape=SPMC, fixed_mc_masks=7), ValueError, "fixed_mc_masks"),
     (dict(BATCHED, mesh_shape=SP, quantize="int8"), ValueError, "does not compose with the sp"),
     (dict(BATCHED, mesh_shape=SP, packed_host_input=True), ValueError, "packed_host_input"),
-    (dict(BATCHED, mesh_shape={"sp": 4}), ValueError, r"multiple of 32 x sp \(128\)"),
+    (dict(BATCHED, full_img_size=(80, 96, 3), mesh_shape=SP), AssertionError,
+     "divisible by 32"),
+    (dict(BATCHED, mesh_shape={"sp": 4}), RuntimeError, "world size 4"),
     (dict(BATCHED, mesh_shape=SP), RuntimeError, "world size 2"),
     (dict(EPI, mesh_shape=SPMC), RuntimeError, "world size 4"),
 ])
 def test_runner_refuses_sp_rules(kw, exc, match):
     """The JAX runner's sp refusals (infer/runner.py:110-121, :147-175,
     :258-274) with its exception types — the two of its asserts included —
-    then the port's own: the band rule and the missing group."""
+    and a height that is not a multiple of 32 (the model's assert), then the
+    port's own: the missing group.  64 rows over sp=4 (bands of 1, 1, 0 and
+    0 rows of the stride-32 map) pass the band rule and stop at the group."""
     with pytest.raises(exc, match=match):
         InferenceRunner(Config(**kw), device="cpu")
 
@@ -404,14 +514,112 @@ def test_dropout_band_outside_its_map_raises():
 
 
 def test_band_rules():
-    """H a multiple of 32 x sp; a halo rule for 3x3 convs at stride 1 and 2
-    only (1x1 convs need none)."""
-    check_height(1024, 2)
-    check_height(1024, 32)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        check_height(1024, 3)
+    """H a positive multiple of 32, any sp; a halo rule for 3x3 convs at
+    stride 1 and 2 only (1x1 convs need none)."""
+    for h, n in ((1024, 2), (1024, 3), (1024, 32), (64, 3), (32, 5)):
+        check_height(h, n)
+    for h, n in ((1000, 2), (0, 1), (48, 3)):
+        with pytest.raises(ValueError, match="multiple of 32"):
+            check_height(h, n)
     band = Band(Group(size=2, rank=1))
     with pytest.raises(ValueError, match="no halo rule"):
         band.conv(torch.zeros((1, 2, 4, 3)), torch.zeros((3, 3, 5, 5)))
-    assert band.origin(16) == (16, 32)
     assert band.rows(torch.zeros((1, 64, 4, 3))).shape[1] == 32
+    assert band.origin(16) == (16, 32)
+
+
+# (H, N): even and uneven bands, empty ones, more ranks than rows
+BAND_GRID = [(32, 1), (64, 2), (64, 3), (64, 4), (96, 2), (160, 3), (128, 8), (1024, 3),
+             (1024, 5), (1024, 7), (1024, 32), (1024, 33), (480, 4)]
+
+
+@pytest.mark.parametrize("height,n", BAND_GRID)
+def test_band_plan_follows_gspmd(height, n):
+    """R = H/32 rows of the stride-32 map, per = ceil(R/N): rank r holds
+    [r*per, min((r+1)*per, R)); the bands cover the map in rank order, the
+    non-empty ones first, each full but the last non-empty one."""
+    plan = band_plan(height, n)
+    coarse = height // STRIDE
+    per = -(-coarse // n)
+    assert (plan.coarse, plan.per) == (coarse, per)
+    covered = [row for a, c in zip(plan.start, plan.size) for row in range(a, a + c)]
+    assert covered == list(range(coarse))
+    assert all(0 <= c <= per for c in plan.size)
+    nonempty = [c > 0 for c in plan.size]
+    assert nonempty == sorted(nonempty, reverse=True)
+    assert list(plan.size[:coarse // per]) == [per] * (coarse // per)
+    assert sum(nonempty) == -(-coarse // per)
+
+
+class _FakeGroup:
+    """A rank of an sp group whose all-gathers return every rank's band from
+    ``bands`` (one list of the ranks' bands per call, in call order): each
+    band padded to the length of this rank's padded one, the others' with
+    NaN, which the trim must drop.  Its halo exchange records the edges it
+    is offered."""
+
+    def __init__(self, size, rank, bands=()):
+        self.size, self.rank, self.edges = size, rank, []
+        self.bands = list(bands)
+
+    def all_gather(self, t, dim=0):
+        per_rank = self.bands.pop(0)
+        own = per_rank[self.rank]
+        assert torch.equal(t[..., :own.shape[-1]], own) and not t[..., own.shape[-1]:].any()
+        parts = []
+        for p in per_rank:
+            x = torch.full((*p.shape[:-1], t.shape[-1]), float("nan"))
+            x[..., :p.shape[-1]] = p
+            parts.append(x)
+        return torch.cat(parts, dim=dim)
+
+    def exchange_edges(self, first, last):
+        self.edges.append((first, last))
+        return None, None
+
+
+@pytest.mark.parametrize("height,n", BAND_GRID)
+def test_band_rows_and_padded_gather(height, n):
+    """Each rank's ``rows`` is its plan's band of the image; ``gather`` of
+    the ranks' bands of three maps (strides 32, 16, 8) gives the whole maps,
+    the padding of the uneven bands trimmed away."""
+    width = 64
+    imgs = torch.arange(height, dtype=torch.float32)[None, :, None, None].expand(1, height,
+                                                                                  width, 1)
+    plan = band_plan(height, n)
+    gen = torch.Generator().manual_seed(height + n)
+    whole = {s: torch.randn((3, 2, (height // s) * (width // s)), generator=gen)
+             for s in (32, 16, 8)}
+    bands = []
+    for s, m in whole.items():
+        f, w = STRIDE // s, width // s
+        bands.append([m[..., a * f * w:(a + c) * f * w] for a, c in zip(plan.start, plan.size)])
+    for r in range(n):
+        band = Band(_FakeGroup(n, r, bands))
+        rows = band.rows(imgs)
+        a, c = plan.start[r] * STRIDE, plan.size[r] * STRIDE
+        assert torch.equal(rows[0, :, 0, 0], torch.arange(a, a + c, dtype=torch.float32))
+        got = band.gather([(per_rank[r], (plan.size[r] * STRIDE // s, width // s))
+                           for per_rank, s in zip(bands, (32, 16, 8))])
+        for (raw, hw), s in zip(got, (32, 16, 8)):
+            assert hw == (height // s, width // s)
+            assert torch.equal(raw, whole[s])
+
+
+def test_empty_band_takes_part_in_the_halo_exchange():
+    """A rank with no rows offers zero edges of the band's shape to every
+    3x3 conv's exchange (both edges at stride 1, the last alone at stride
+    2), returns an empty map of the conv's output width and channels, and
+    draws its dropout mask at origin (0, 0)."""
+    group = _FakeGroup(3, 2)
+    band = Band(group)
+    assert band.rows(torch.zeros((2, 64, 96, 3))).shape == (2, 0, 96, 3)
+    x = torch.zeros((2, 0, 12, 5))
+    assert band.conv(x, torch.zeros((7, 5, 3, 3))).shape == (2, 0, 12, 7)
+    assert band.conv(x, torch.zeros((7, 5, 3, 3)), stride=2).shape == (2, 0, 6, 7)
+    assert band.conv(x, torch.zeros((7, 5, 1, 1))).shape == (2, 0, 12, 7)
+    (first, last), (none, last2) = group.edges
+    assert first.shape == last.shape == last2.shape == (2, 12, 5) and none is None
+    assert not first.any() and not last.any()
+    assert band.origin(0) == (0, 0)
+    assert dropout(x.clone(), 0.1, [1, 2], origin=band.origin(0)).shape == x.shape
