@@ -1,0 +1,8 @@
+"""Device ms per image of the backbone alone in batched detection
+(``readings.layer_ms``)."""
+
+from bench_lib import readings
+
+
+def read(rec):
+    return readings.layer_ms(rec, "backbone_ms_per_img")
