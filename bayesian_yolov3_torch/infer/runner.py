@@ -63,6 +63,34 @@ builds the quantized heads from a few images (``run()`` calibrates on the
 dataset's first ``quant_calib_images`` frames by itself); ``predict()``
 refuses to run before it.  The mc all-gather fallback refuses int8, as the
 JAX runner's GSPMD fallback does.
+
+Spans and counters (``utils.profiling``, always on, kept in memory): a
+``predict`` call is one request, root span ``byolo.predict``; a batch of
+``run()`` is one, root ``byolo.batch`` from the loader's pull to its rows
+on the host.  Inside: ``byolo.load`` (the loader's pull), ``byolo.h2d``
+(the uint8 batch onto the device), ``byolo.backbone``, ``byolo.heads``
+(with one ``byolo.dropout`` span per dropout site), ``byolo.decode``,
+``byolo.nms`` and, on a failed certificate, ``byolo.nms_exact``, the waits
+for the device ``byolo.wait.nms_scalar`` (inside ``byolo.nms``: a host
+scalar's blocking copy, ``ops.nms.nms_select_batch``),
+``byolo.wait.certificate`` and ``byolo.wait.fetch`` (the rows' copy to the
+host), and ``byolo.write`` on the writer thread.
+Counters: ``images``, ``nms_certificate_failed`` (images),
+``nms_exact_retry`` (0 or 1), ``h2d_bytes``.
+
+The operator's reading: ``run()`` ends with one log line of host ms per
+image -- ``load`` (tfrecord read and PNG decode), ``h2d`` (a blocking copy
+from pageable memory), ``enqueue`` (the host launching the device program:
+backbone, heads, decode, NMS), ``wait`` (the host blocked on the device),
+``write`` (JSON, on its own thread) -- then the copy's rate (GB/s,
+``h2d_bytes`` over the ``byolo.h2d`` spans), and the batches re-run with
+exact NMS with the images whose certificate failed
+(``nms_exact_retry``, ``nms_certificate_failed``).  ``wait`` close to the
+time per image means the device sets the pace;
+``enqueue`` or ``load`` well above ``wait`` mean the host does; ``write``
+near the time per image means the writer thread does (its JSON building
+also holds the interpreter lock against the launches, which inflates
+``enqueue``).
 """
 
 from __future__ import annotations
@@ -101,9 +129,15 @@ from ..parallel import (
 from ..parallel.spatial import check_height
 from ..train.checkpoints import CheckpointStore
 from ..train.loop import merge_params, partition_params
+from ..utils import profiling
+from ..utils.profiling import annotate
 from .ecp import bbox_to_ecp_format
 
 log = logging.getLogger("byolo.infer")
+
+# the spans whose host time is the device program's enqueue (a wait span
+# inside one counts as wait)
+ENQUEUE_SPANS = ("byolo.backbone", "byolo.heads", "byolo.decode", "byolo.nms", "byolo.nms_exact")
 
 
 class InferenceRunner:
@@ -323,7 +357,8 @@ class InferenceRunner:
                 outs = forward_cf(params, stats, imgs, packed_hw=packed_hw, **kw)
             else:
                 outs = forward_cf_q(qh, params, stats, imgs, packed_hw=packed_hw, **kw)
-            return fused_box_decode_all_scales(outs, self._priors, spec=self.spec)
+            with annotate("byolo.decode"):
+                return fused_box_decode_all_scales(outs, self._priors, spec=self.spec)
         nb = imgs.shape[0]
         if self._mc_fused is not None:
             return self._mc_fused.decode(params, stats, imgs, keys, qheads=qh)[None]
@@ -331,8 +366,9 @@ class InferenceRunner:
             outs = spatial_mc_raws(params, stats, imgs, keys, spec=self.spec, group=self._sp,
                                    T=self.config.T, compute_dtype=dtype, mc=self._sp_mc)
             if self._sp_mc is not None:
-                return sharded_moments_rows(outs, self._sp_mc, self.config.T, self._priors,
-                                            self.spec.cls_cnt)[None]
+                with annotate("byolo.decode"):
+                    return sharded_moments_rows(outs, self._sp_mc, self.config.T, self._priors,
+                                                self.spec.cls_cnt)[None]
         elif self._mc_forward is not None:
             outs = self._mc_forward(params, stats, imgs, keys)
         else:
@@ -340,16 +376,17 @@ class InferenceRunner:
                       compute_dtype=self.model._dtype, packed_hw=packed_hw)
             outs = (mc_forward_cf(params, stats, imgs, **kw) if qh is None
                     else mc_forward_cf_q(qh, params, stats, imgs, **kw))
-        return torch.cat(
-            [
-                fused_epistemic_decode_cf_batched(
-                    raw_cf, self._priors[stride], n_imgs=nb, h=hw[0], w=hw[1],
-                    cls_cnt=self.spec.cls_cnt, layer_id=i,
-                )
-                for i, ((raw_cf, hw), stride) in enumerate(zip(outs, (32, 16, 8)))
-            ],
-            dim=1,
-        )
+        with annotate("byolo.decode"):
+            return torch.cat(
+                [
+                    fused_epistemic_decode_cf_batched(
+                        raw_cf, self._priors[stride], n_imgs=nb, h=hw[0], w=hw[1],
+                        cls_cnt=self.spec.cls_cnt, layer_id=i,
+                    )
+                    for i, ((raw_cf, hw), stride) in enumerate(zip(outs, (32, 16, 8)))
+                ],
+                dim=1,
+            )
 
     def _select(self, flat, pre_top_k):
         """Decoded rows -> (rows, valid, cert) padded NMS selections.
@@ -366,11 +403,18 @@ class InferenceRunner:
         """NMS on the top ``nms_pre_top_k`` candidates; where any image's
         certificate fails, exact NMS over all anchors of the SAME decoded
         rows (the forward is not run again: the rows do not depend on
-        ``pre_top_k``).  Returns (rows, valid, retried)."""
-        rows, valid, cert = self._select(flat, self.config.nms_pre_top_k)
-        if bool(cert.all()):
+        ``pre_top_k``).  Returns (rows, valid, retried); counts the images
+        whose certificate failed and the retry on the current request."""
+        with annotate("byolo.nms"):
+            rows, valid, cert = self._select(flat, self.config.nms_pre_top_k)
+        with annotate("byolo.wait.certificate"):
+            failed = 0 if bool(cert.all()) else int((~cert).sum())
+        if not failed:
             return rows, valid, False
-        rows, valid, _ = self._select(flat, 0)
+        profiling.count("nms_certificate_failed", failed)
+        profiling.count("nms_exact_retry")
+        with annotate("byolo.nms_exact"):
+            rows, valid, _ = self._select(flat, 0)
         return rows, valid, True
 
     def _launch(self, params, stats, images, keys):
@@ -392,10 +436,13 @@ class InferenceRunner:
     def _to_device(self, images):
         """A uint8 host batch on the runner's device; under dp only the
         rank's share of it (``_dp.shard``), which is all its pipeline reads."""
-        images = np.asarray(images)
-        if self._dp is not None:
-            images = self._dp.shard(images)
-        return torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+        with annotate("byolo.h2d"):
+            images = np.asarray(images)
+            if self._dp is not None:
+                images = self._dp.shard(images)
+            images = np.ascontiguousarray(images)
+            profiling.count("h2d_bytes", images.nbytes)
+            return torch.from_numpy(images).to(self.device)
 
     def _device_pipeline(self, params, stats, images, keys, *, pre_top_k):
         """The whole device program: uint8 batch -> (rows, valid, cert)."""
@@ -410,7 +457,9 @@ class InferenceRunner:
     def predict(self, params, stats, images, keys=None):
         """uint8 NHWC image batch (numpy) -> (rows, valid) numpy detections,
         with the exact-NMS certificate retry applied.  ``keys``: a key table
-        as ``draw_keys`` gives; None draws one."""
+        as ``draw_keys`` gives; None draws one.  One request
+        (``utils.profiling``): the root span ``byolo.predict`` and its
+        counters."""
         if self.packed:
             raise ValueError("predict() takes NHWC uint8 images; packed_host_input "
                              "is a run()-loop feed")
@@ -418,10 +467,13 @@ class InferenceRunner:
             raise RuntimeError(
                 "config.quantize is set but the int8 head section is not calibrated: "
                 "call calibrate_int8(params, stats, images) once before predict()")
-        if keys is None:
-            keys = self.draw_keys()
-        rows, valid, _ = self._launch(params, stats, self._to_device(images), keys)()
-        return rows.cpu().numpy(), valid.cpu().numpy()
+        images = np.asarray(images)
+        with profiling.request("byolo.predict", images=images.shape[0]):
+            if keys is None:
+                keys = self.draw_keys()
+            rows, valid, _ = self._launch(params, stats, self._to_device(images), keys)()
+            with annotate("byolo.wait.fetch"):
+                return rows.cpu().numpy(), valid.cpu().numpy()
 
     # -- host loop -------------------------------------------------------
 
@@ -449,29 +501,47 @@ class InferenceRunner:
             self.calibrate_int8(params, stats, np.stack(calib))
         batch_size = self.device_batch_size()
         loader = pipeline.TestLoader(cfg, batch_size=batch_size, pack_planes=self.packed)
+        batches = loader.batches()
         n = 0
         self.retried = 0
         start = time.time()
-        inflight = None  # (finish() of the launched batch, bsz, names)
+        inflight = None  # (finish() of the launched batch, bsz, names, its request)
         written: Optional[Future] = None  # the writer thread's previous batch
+        records = []  # every batch's request record
+
+        def pull():
+            """The next batch (None past the last) under a fresh request,
+            whose root opens at the loader's pull."""
+            req = profiling.Request("byolo.batch")
+            with req, annotate("byolo.load"):
+                batch = next(batches, None)
+            if batch is None:
+                req.end(keep=False)
+            return req, batch
 
         def drain(entry):
             nonlocal written
-            finish, bsz, names = entry
-            rows_d, valid_d, retried = finish()
-            self.retried += retried
-            rows = rows_d[:bsz].cpu().numpy()
-            valid = valid_d[:bsz].cpu().numpy()
+            finish, bsz, names, req = entry
+            with req:
+                rows_d, valid_d, _ = finish()
+                with annotate("byolo.wait.fetch"):
+                    rows = rows_d[:bsz].cpu().numpy()
+                    valid = valid_d[:bsz].cpu().numpy()
+            req.end()
+            records.append(req.record)
+            self.retried += req.record["counters"]["nms_exact_retry"]
             if self.rank != 0:
                 return  # every rank holds the same rows; rank 0 writes them
             if written is not None:
                 written.result()  # a failed write raises here, not silently
-            written = writer.submit(self._write_batch, rows, valid, names, out_dir)
+            written = writer.submit(self._write_batch, rows, valid, names, out_dir, req)
 
         with ThreadPoolExecutor(max_workers=1) as writer:
-            for batch in loader.batches():
+            req, batch = pull()
+            while batch is not None:
                 images = batch["packed"] if self.packed else batch["image"]
                 bsz = images.shape[0]
+                req.count("images", bsz)
                 if bsz < batch_size:  # pad the final partial batch
                     pad = np.repeat(images[-1:], batch_size - bsz, axis=0)
                     images = np.concatenate([images, pad], axis=0)
@@ -480,40 +550,80 @@ class InferenceRunner:
                 # batch's forward + decode BEFORE fetching the previous one's
                 # results: launches are asynchronous, the certificate check
                 # and the fetch in drain() synchronise
-                finish = self._launch(params, stats, self._to_device(images),
-                                      self.draw_keys())
+                with req:
+                    finish = self._launch(params, stats, self._to_device(images),
+                                          self.draw_keys())
                 names = [f.decode() if isinstance(f, bytes) else f
                          for f in batch["filename"]]
                 if inflight is not None:
                     drain(inflight)
-                inflight = (finish, bsz, names)
+                inflight = (finish, bsz, names, req)
                 n += bsz
                 if n % 15 == 0:
                     log.info("Processed %d images.", n)
+                req, batch = pull()
             if inflight is not None:
                 drain(inflight)
             if written is not None:
                 written.result()
-        if self.retried:
-            log.info("%d batches re-run with exact NMS (certificate).", self.retried)
         elapsed = time.time() - start
         self.last_run = {"images": n, "seconds": elapsed}
         log.info("Processed %d images in %.1fs (%.2f img/s).", n, elapsed,
                  n / max(elapsed, 1e-9))
+        log.info("Host ms per image: %s; h2d %.2f GB/s; %d batches re-run with exact NMS "
+                 "(certificate failed on %d images).",
+                 ", ".join(f"{k} {v:.3f}" for k, v in host_ms_per_image(records).items()),
+                 h2d_gb_per_s(records), self.retried,
+                 sum(r["counters"]["nms_certificate_failed"] for r in records))
         return out_dir
 
-    def _write_batch(self, rows, valid, names, out_dir):
-        for b in range(rows.shape[0]):
-            dets = [
-                bbox_to_ecp_format(
-                    rows[b, i],
-                    self.config.full_img_size,
-                    self.spec,
-                    epistemic=self.epistemic,
-                    implicit_background_class=self.config.implicit_background_class,
-                )
-                for i in np.flatnonzero(valid[b])
-            ]
-            base = os.path.splitext(os.path.basename(names[b]))[0]
-            with open(os.path.join(out_dir, f"{base}.json"), "w") as f:
-                json.dump({"children": dets}, f)
+    def _write_batch(self, rows, valid, names, out_dir, req):
+        """One batch's ECP JSON files (on the writer thread: ``req`` is the
+        batch's request, which its ``byolo.write`` span joins)."""
+        with annotate("byolo.write", request=req):
+            for b in range(rows.shape[0]):
+                dets = [
+                    bbox_to_ecp_format(
+                        rows[b, i],
+                        self.config.full_img_size,
+                        self.spec,
+                        epistemic=self.epistemic,
+                        implicit_background_class=self.config.implicit_background_class,
+                    )
+                    for i in np.flatnonzero(valid[b])
+                ]
+                base = os.path.splitext(os.path.basename(names[b]))[0]
+                with open(os.path.join(out_dir, f"{base}.json"), "w") as f:
+                    json.dump({"children": dets}, f)
+
+
+def host_ms_per_image(records) -> dict:
+    """Host ms per image over request records (``utils.profiling``): the
+    loader's pull (``byolo.load``), the copy onto the device
+    (``byolo.h2d``), the device program's enqueue (``ENQUEUE_SPANS``), the
+    waits for the device (``byolo.wait.*``) and the JSON writing
+    (``byolo.write``, on the writer thread)."""
+    ms = dict.fromkeys(("load", "h2d", "enqueue", "wait", "write"), 0.0)
+    of = {"byolo.load": "load", "byolo.h2d": "h2d", "byolo.write": "write",
+          **dict.fromkeys(ENQUEUE_SPANS, "enqueue")}
+    images = 0
+    for rec in records:
+        images += rec["counters"]["images"]
+        name_of = {s["id"]: s["name"] for s in rec["spans"]}
+        for span in rec["spans"]:
+            dt = (span["end_ns"] - span["start_ns"]) * 1e-6
+            if span["name"].startswith("byolo.wait."):
+                ms["wait"] += dt
+                if name_of.get(span["parent"]) in ENQUEUE_SPANS:
+                    ms["enqueue"] -= dt  # a wait inside an enqueue span (the NMS scalar)
+            elif span["name"] in of:
+                ms[of[span["name"]]] += dt
+    return {k: v / max(images, 1) for k, v in ms.items()}
+
+
+def h2d_gb_per_s(records) -> float:
+    """The copy onto the device over request records: ``h2d_bytes`` over
+    the host time of the ``byolo.h2d`` spans (0 where there is none)."""
+    ns = sum(s["end_ns"] - s["start_ns"] for r in records for s in r["spans"]
+             if s["name"] == "byolo.h2d")
+    return sum(r["counters"]["h2d_bytes"] for r in records) / max(ns, 1)

@@ -18,6 +18,7 @@ import torch
 
 from ..ops.common import (
     _bn_affine, conv2d, conv_block, conv_block_train, init_conv_block, leaky_relu)
+from ..utils.profiling import annotate
 
 # (kernel_size, out_channels, stride); residual adds are implied by the
 # stage structure below and applied in ``darknet53``.
@@ -219,6 +220,7 @@ def _fused_early_auto(x: torch.Tensor, compute_dtype) -> bool:
     return compute_dtype == torch.bfloat16 and x.is_cuda
 
 
+@annotate("byolo.backbone")
 def darknet53(
     params: Dict,
     stats: Dict,

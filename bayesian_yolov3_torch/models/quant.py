@@ -24,6 +24,7 @@ import torch
 
 from ..core.blueprint import Variant, VariantSpec
 from ..ops.quant import quant_block, quant_detection_cf, quantize_act
+from ..utils.profiling import annotate
 from . import darknet
 from .yolov3 import DROP_PROB, _batch_keys, _key_table, _walk_heads
 
@@ -41,11 +42,15 @@ def _heads_q(qh: Dict, q32: torch.Tensor, qs16: torch.Tensor, qs8: torch.Tensor,
     return _walk_heads(q32, qs16, qs8, site_keys, block)
 
 
-def _entry(qh: Dict, params: Dict, stats: Dict, imgs, compute_dtype, fused_early, packed_hw):
-    """The backbone, then its three outputs quantized at the entry scales."""
-    out32, skip16, skip8, _ = darknet.darknet53(
-        params["backbone"], stats["backbone"], imgs,
-        compute_dtype=compute_dtype, fused_early=fused_early, packed_hw=packed_hw)
+def _backbone(params: Dict, stats: Dict, imgs, compute_dtype, fused_early, packed_hw):
+    """The backbone's three outputs (stride 32, 16, 8)."""
+    return darknet.darknet53(params["backbone"], stats["backbone"], imgs,
+                             compute_dtype=compute_dtype, fused_early=fused_early,
+                             packed_hw=packed_hw)[:3]
+
+
+def _entry(qh: Dict, out32, skip16, skip8):
+    """The backbone's three outputs quantized at the entry scales."""
     entry = qh["entry"]
     return (quantize_act(out32, entry["out32"]), quantize_act(skip16, entry["skip16"]),
             quantize_act(skip8, entry["skip8"]))
@@ -60,11 +65,12 @@ def forward_cf_q(qh: Dict, params: Dict, stats: Dict, imgs: torch.Tensor, *, spe
     heads (dropout as ``forward_cf`` runs it), one int8 channels-first
     detection product per scale.  Returns [(raw_cf (ch, NB, h*w) float32,
     (h, w)), ...]."""
-    q32, qs16, qs8 = _entry(qh, params, stats, imgs, compute_dtype, fused_early, packed_hw)
-    feats = _heads_q(qh, q32, qs16, qs8,
-                     site_keys=_batch_keys(spec, rng, standard_test_dropout))
-    return [(quant_detection_cf(qh[f"det{head}"], f), tuple(f.shape[1:3]))
-            for head, f in enumerate(feats, start=1)]
+    outs = _backbone(params, stats, imgs, compute_dtype, fused_early, packed_hw)
+    with annotate("byolo.heads"):
+        feats = _heads_q(qh, *_entry(qh, *outs),
+                         site_keys=_batch_keys(spec, rng, standard_test_dropout))
+        return [(quant_detection_cf(qh[f"det{head}"], f), tuple(f.shape[1:3]))
+                for head, f in enumerate(feats, start=1)]
 
 
 @torch.no_grad()
@@ -77,11 +83,13 @@ def mc_forward_cf_q(qh: Dict, params: Dict, stats: Dict, img: torch.Tensor, *,
     [(raw_cf (ch, T, NB*h*w) float32, (h, w)), ...]."""
     if spec.variant != Variant.BAYESIAN:
         raise ValueError("mc_forward_cf_q needs the bayesian variant")
-    q32, qs16, qs8 = _entry(qh, params, stats, img, compute_dtype, fused_early, packed_hw)
-    feats = _heads_q(qh, q32, qs16, qs8, site_keys=_key_table(rng, fixed_masks, T))
+    outs = _backbone(params, stats, img, compute_dtype, fused_early, packed_hw)
     nb = img.shape[0]
     out = []
-    for head, f in enumerate(feats, start=1):
-        h, w, c = f.shape[1:]
-        out.append((quant_detection_cf(qh[f"det{head}"], f.reshape(T, nb, h, w, c)), (h, w)))
+    with annotate("byolo.heads"):
+        feats = _heads_q(qh, *_entry(qh, *outs), site_keys=_key_table(rng, fixed_masks, T))
+        for head, f in enumerate(feats, start=1):
+            h, w, c = f.shape[1:]
+            out.append((quant_detection_cf(qh[f"det{head}"], f.reshape(T, nb, h, w, c)),
+                        (h, w)))
     return out

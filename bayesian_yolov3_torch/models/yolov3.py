@@ -38,6 +38,7 @@ from ..ops.common import (
     init_detection_conv,
     upsample2x,
 )
+from ..utils.profiling import annotate
 from . import darknet
 
 DROP_PROB = 0.1  # hard-coded in the reference
@@ -318,14 +319,13 @@ def forward_cf(
         params["backbone"], stats["backbone"], imgs,
         compute_dtype=compute_dtype, fused_early=fused_early, packed_hw=packed_hw, band=band,
     )
-    feats = _heads(params, stats, out32, skip16, skip8,
-                   site_keys=_batch_keys(spec, rng, standard_test_dropout),
-                   compute_dtype=compute_dtype, return_features=True, band=band)
-    out = []
-    for head, f in enumerate(feats, start=1):
-        raw_cf = detection_conv_cf(params[f"det{head}"], f, compute_dtype=compute_dtype)
-        out.append((raw_cf, tuple(f.shape[1:3])))
-    return out
+    with annotate("byolo.heads"):
+        feats = _heads(params, stats, out32, skip16, skip8,
+                       site_keys=_batch_keys(spec, rng, standard_test_dropout),
+                       compute_dtype=compute_dtype, return_features=True, band=band)
+        return [(detection_conv_cf(params[f"det{head}"], f, compute_dtype=compute_dtype),
+                 tuple(f.shape[1:3]))
+                for head, f in enumerate(feats, start=1)]
 
 
 def mc_forward(
@@ -393,16 +393,17 @@ def mc_forward_cf(
         params["backbone"], stats["backbone"], img,
         compute_dtype=compute_dtype, fused_early=fused_early, packed_hw=packed_hw, band=band,
     )
-    feats = _heads(params, stats, out32, skip16, skip8,
-                   site_keys=_key_table(rng, fixed_masks, T),
-                   compute_dtype=compute_dtype, return_features=True, band=band)
     nb = img.shape[0]
     out = []
-    for head, f in enumerate(feats, start=1):
-        h, w, c = f.shape[1:]
-        raw_cf = detection_conv_cf(params[f"det{head}"], f.reshape(T, nb, h, w, c),
-                                   compute_dtype=compute_dtype)
-        out.append((raw_cf, (h, w)))
+    with annotate("byolo.heads"):
+        feats = _heads(params, stats, out32, skip16, skip8,
+                       site_keys=_key_table(rng, fixed_masks, T),
+                       compute_dtype=compute_dtype, return_features=True, band=band)
+        for head, f in enumerate(feats, start=1):
+            h, w, c = f.shape[1:]
+            raw_cf = detection_conv_cf(params[f"det{head}"], f.reshape(T, nb, h, w, c),
+                                       compute_dtype=compute_dtype)
+            out.append((raw_cf, (h, w)))
     return out
 
 

@@ -37,6 +37,8 @@ from typing import Dict, Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import annotate
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.99
 LEAKY_ALPHA = 0.1
@@ -120,6 +122,7 @@ def hash_keep(idx: torch.Tensor, key: int, thresh: int) -> torch.Tensor:
     return h < thresh
 
 
+@annotate("byolo.dropout")
 def dropout(x: torch.Tensor, rate: float,
             keys: Union[int, Sequence[int]], origin=None) -> torch.Tensor:
     """Inverted hash dropout (``impl="hash"`` of the JAX package), in place.

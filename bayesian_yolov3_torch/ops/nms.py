@@ -13,6 +13,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.profiling import annotate
 from .cuda_nms import greedy_nms_cuda, greedy_nms_plain
 
 
@@ -80,7 +81,9 @@ def nms_select_batch(
     if excluded_max is None:
         cert = torch.ones(nb, dtype=torch.bool, device=decoded.device)
     else:
-        inf = torch.tensor(float("inf"), device=decoded.device)
+        # a host scalar copied to the device blocks until the stream drains
+        with annotate("byolo.wait.nms_scalar"):
+            inf = torch.tensor(float("inf"), device=decoded.device)
         min_sel = torch.where(valid, rows[:, :, obj_idx], inf).min(dim=1).values
         cert = (count == max_out) & (min_sel >= excluded_max)
     return rows, valid, count, cert
